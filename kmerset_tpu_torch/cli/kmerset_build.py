@@ -1,0 +1,132 @@
+"""kmerset-build on a torch device: FASTA -> counted, cutoff-filtered,
+SPSS-compressed k-mer set file.
+
+Same flags and log lines as kmerset_tpu/cli/kmerset_build.py, plus
+--device (default cuda; a missing CUDA device is an error, never a quiet
+CPU run).  Counting and the --check decode run on the device through the
+port's kernels; the cutoff filter, the SPSS build and the dump are the
+reference's host code.  This slice takes k <= 15; --k 19 and --k 23 need
+the pair-lane pack kernel B2 (slice 2, ROADMAP A.4) and exit 1.  There is
+no multi-process bring-up (multi-GPU is ROADMAP A.8).
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import sys
+
+from kmerset_tpu.core import io as core_io
+from kmerset_tpu.core.config import get_config
+from kmerset_tpu.utils.log import enable_debug_logs, init_default_logger
+
+from .. import resolve_device
+from ..core.kmer_counter import KmerCounter
+from ..core.kmer_set_compact import KmerSetCompact
+from ..ops.pack import MAX_K
+from ..utils import flags as flag_util
+
+
+def main(argv=None) -> None:
+    # The reused host graph code routes through the reference's backend
+    # probes, which would import JAX (and let it claim the GPU) unless the
+    # reference's documented switch pins them to their host arms.
+    os.environ["KMERSET_TPU_FORCE_BACKEND"] = "host"
+
+    parser = argparse.ArgumentParser(
+        description=(
+            "Reads a FASTA file and constructs a set of k-mers. "
+            "Usage: kmerset-build [options] <path to file>"
+        )
+    )
+    flag_util.add_common_flags(parser, compressor=True)
+    parser.add_argument(
+        "--cutoff",
+        type=int,
+        default=1,
+        help="ignore k-mers that appear less often than this value",
+    )
+    flag_util.add_bool_flag(
+        parser,
+        "check",
+        False,
+        "does compression & decompression to see if it is working correctly",
+    )
+    parser.add_argument("--out", default="", help="output file name")
+    parser.add_argument(
+        "--device",
+        default="cuda",
+        help="torch device for counting and decoding: cuda (default) or cpu",
+    )
+    parser.add_argument("file", help="path to FASTA file")
+    args = flag_util.parse_args(parser, argv)
+
+    logger = init_default_logger()
+    if args.debug:
+        enable_debug_logs()
+    flag_util.check_k(args.k)
+    if args.k > MAX_K:
+        print(
+            f"k={args.k} is not ported yet: this package counts k <= {MAX_K}; "
+            "k = 19 and 23 need the pair-lane pack kernel B2 "
+            "(slice 2, ROADMAP A.4)",
+            file=sys.stderr,
+        )
+        raise SystemExit(1)
+    try:
+        device = resolve_device(args.device)
+    except (RuntimeError, ValueError) as e:
+        logger.error("%s", e)
+        sys.exit(1)
+    flag_util.apply_workers(args)
+    cfg = get_config(args.k)
+
+    with flag_util.trace_context(args, device):
+        logger.info("constructing kmer_counter")
+        try:
+            counter = KmerCounter.from_fasta(
+                cfg.k, args.file, args.decompressor, args.canonical,
+                device=device,
+            )
+        except core_io.IOError_ as e:
+            logger.error("failed to parse FASTA file: %s", e)
+            sys.exit(1)
+        logger.info("constructed kmer_counter")
+
+        logger.info("constructing kmer_set")
+        kmer_set, cutoff_count = counter.to_kmer_set(args.cutoff)
+        logger.info("constructed kmer_set")
+        logger.info("cutoff_count = %d", cutoff_count)
+        logger.info("kmer_set.Size() = %d", kmer_set.size())
+        logger.info("kmer_set.Hash() = %d", kmer_set.hash())
+
+        logger.info("constructing kmer_set_compact")
+        compact = KmerSetCompact.from_kmer_set(
+            kmer_set, args.canonical, fast=True, device=device
+        )
+        logger.info("constructed kmer_set_compact")
+        logger.info("kmer_set_compact.Size() = %d", compact.size())
+
+    if args.check:
+        # Decode the SPSS strings through a fresh compact set (from_kmer_set
+        # seeds the decode cache with the source k-mers, so reusing it
+        # would compare the array with itself).
+        decompressed = KmerSetCompact(
+            compact.k, compact.spss, device=device
+        ).to_kmer_set(args.canonical)
+        if kmer_set.equals(decompressed):
+            logger.info("kmer_set_compact -> KmerSet: ok")
+        else:
+            logger.error("kmer_set_compact -> KmerSet: failed")
+            sys.exit(1)
+
+    if args.out:
+        try:
+            compact.dump(args.out, args.compressor)
+        except core_io.IOError_ as e:
+            logger.error("failed to dump kmer_set_compact: %s", e)
+            sys.exit(1)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,143 @@
+"""Builds the port's CUDA kernels (`kmerset_tpu_torch/csrc/*.cu`) at first
+use and loads them with ctypes.
+
+One `nvcc` call compiles every source for Hopper (`sm_90a`) into a shared
+library with a plain C interface; no PyTorch header is included, so the
+build takes seconds.  The library lands in `build/kmerset_tpu_torch/` at
+the root of the checkout (git-ignored), named by a hash of the sources and
+flags, so an edited kernel is rebuilt and an unchanged one is reused.  A
+file lock serialises concurrent builds.
+
+Unlike the reference's best-effort native build (kmerset_tpu/_nativebuild.py),
+a failed build raises: the wrappers have no host fallback for a CUDA
+tensor.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from typing import Optional
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kmerset_tpu_torch")
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",
+]
+
+_LIB: Optional[ctypes.CDLL] = None
+_LOCK = threading.Lock()
+
+
+def _sources() -> list:
+    return sorted(
+        os.path.join(CSRC, f) for f in os.listdir(CSRC) if f.endswith(".cu")
+    )
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME")
+    if home and os.path.isfile(os.path.join(home, "bin", "nvcc")):
+        return os.path.join(home, "bin", "nvcc")
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = "/usr/local/cuda/bin/nvcc"
+    if os.path.isfile(default):
+        return default
+    raise RuntimeError(
+        "nvcc not found (set CUDA_HOME or put nvcc on PATH): the port's "
+        "CUDA kernels are built from source at first use"
+    )
+
+
+def library_path() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        h.update(os.path.basename(src).encode())
+        with open(src, "rb") as f:
+            h.update(f.read())
+    return os.path.join(BUILD_DIR, f"libkmerset_kernels_{h.hexdigest()[:16]}.so")
+
+
+def _compile(out: str) -> None:
+    import fcntl
+
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    with open(os.path.join(BUILD_DIR, ".build.lock"), "a+") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if os.path.isfile(out):  # another process built it while we waited
+            return
+        tmp = f"{out}.{os.getpid()}.tmp"
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *_sources()]
+        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
+        with open(out[: -len(".so")] + ".log", "w") as log:
+            log.write(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            if os.path.exists(tmp):
+                os.unlink(tmp)
+            raise RuntimeError(
+                f"nvcc failed with exit code {proc.returncode}:\n"
+                f"{proc.stdout}{proc.stderr}"
+            )
+        os.replace(tmp, out)
+
+
+def build_log() -> str:
+    """The compiler's output (ptxas register and shared-memory report) of
+    the current library's build, or '' when it was built elsewhere."""
+    path = library_path()[: -len(".so")] + ".log"
+    try:
+        with open(path) as f:
+            return f.read()
+    except OSError:
+        return ""
+
+
+def _bind(lib: ctypes.CDLL) -> None:
+    p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+    sigs = {
+        # packed, L, k, canonical, valid, out, n_out, stream
+        "kmerset_pack_canonical": [p, i64, i32, i32, p, p, i64, p],
+        # keep, n, block_counts, stream
+        "kmerset_compact_count": [p, i64, p, p],
+        # lane0, lane1, lane2, n_lanes, keep, n, block_offsets, out, stream
+        "kmerset_compact_scatter": [p, p, p, i32, p, i64, p, p, p],
+        "kmerset_compact_tile": [],
+    }
+    for name, argtypes in sigs.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    lib.kmerset_error_string.argtypes = [i32]
+    lib.kmerset_error_string.restype = ctypes.c_char_p
+
+
+def load() -> ctypes.CDLL:
+    """The kernels' library, built first if needed.  Raises on any build
+    or load failure."""
+    global _LIB
+    with _LOCK:
+        if _LIB is None:
+            path = library_path()
+            if not os.path.isfile(path):
+                _compile(path)
+            lib = ctypes.CDLL(path)
+            _bind(lib)
+            _LIB = lib
+        return _LIB
+
+
+def check(lib: ctypes.CDLL, err: int, what: str) -> None:
+    """Raises if a kernel entry returned a CUDA error (its launch was
+    refused, or an earlier asynchronous fault surfaced)."""
+    if err != 0:
+        msg = lib.kmerset_error_string(err).decode()
+        raise RuntimeError(f"{what}: CUDA error {err} ({msg})")

@@ -1,0 +1,79 @@
+"""Kernel B3 (kmerset_tpu_torch/ops/compact.py) held against the reference.
+
+On the CPU the wrapper runs its plain PyTorch version; the CUDA kernel is
+held against that version on the card by chip_smoke.py.  The reference is
+the Pallas stream compactor in interpret mode, on its own domain (sorted
+keys with strictly increasing kept values, n a multiple of its BLOCK), as
+tests/test_join.py drives it.  All comparisons are exact.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from kmerset_tpu.ops.pallas_compact import BLOCK, compact_select_multi
+from kmerset_tpu_torch.ops import compact
+
+
+def _sorted_heads(frac: float, n: int):
+    rng = np.random.default_rng(int(frac * 100) + 3)
+    keys = np.sort(rng.integers(0, n // 3, n).astype(np.int32))
+    keys[-77:] = (1 << 31) - 1  # sentinel tail, as the count pipeline has
+    keep = rng.random(n) <= frac if frac else np.zeros(n, bool)
+    keep &= keys < (1 << 30)
+    keep[1:] &= keys[1:] != keys[:-1]  # kept values strictly increasing
+    return keys, keep
+
+
+@pytest.mark.parametrize("n_lanes", [1, 2])
+@pytest.mark.parametrize("frac", [0.0, 0.05, 0.5, 1.0])
+def test_compact_matches_pallas_interpret(frac, n_lanes):
+    n = 2 * BLOCK
+    keys, keep = _sorted_heads(frac, n)
+    pos = np.arange(n, dtype=np.int32)
+    lanes = [keys, pos][:n_lanes]
+    ref_lanes, ref_n = compact_select_multi(
+        [jnp.asarray(x) for x in lanes], jnp.asarray(keep), 1, interpret=True
+    )
+    got, n_sel = compact.compact_select(
+        [torch.from_numpy(x) for x in lanes], torch.from_numpy(keep)
+    )
+    m = int(ref_n)
+    assert int(n_sel) == m == int(keep.sum())
+    for g, r in zip(got, ref_lanes):
+        np.testing.assert_array_equal(g.numpy()[:m], np.asarray(r)[:m])
+
+
+@pytest.mark.parametrize("n", [0, 1, 2047, 5011])
+def test_compact_any_length_and_order(n):
+    """Beyond the reference's domain: unsorted lanes, three of them, and
+    lengths that are no multiple of a block."""
+    rng = np.random.default_rng(n)
+    lanes = [rng.integers(-(1 << 31), (1 << 31) - 1, n, dtype=np.int32)
+             for _ in range(3)]
+    keep = rng.random(n) < 0.3
+    got, n_sel = compact.compact_select(
+        [torch.from_numpy(x) for x in lanes],
+        torch.from_numpy(keep.astype(np.uint8)),
+    )
+    assert int(n_sel) == int(keep.sum())
+    for g, x in zip(got, lanes):
+        assert g.shape == (n,)
+        np.testing.assert_array_equal(g.numpy()[: int(n_sel)], x[keep])
+
+
+def test_compact_rejects_bad_inputs():
+    keep = torch.ones(8, dtype=torch.bool)
+    lane = torch.arange(8, dtype=torch.int32)
+    with pytest.raises(ValueError):
+        compact.compact_select([], keep)
+    with pytest.raises(ValueError):
+        compact.compact_select([lane] * 4, keep)
+    with pytest.raises(TypeError):
+        compact.compact_select([lane.long()], keep)
+    with pytest.raises(TypeError):
+        compact.compact_select([lane[:4]], keep)
+    with pytest.raises(TypeError):
+        compact.compact_select([lane], keep.int())
