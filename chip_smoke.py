@@ -5,12 +5,17 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
 
     python3 chip_smoke.py
 
-It builds the port's CUDA kernels from the checkout's sources, holds each
-kernel against its plain PyTorch version on the card, then drives the
-port's `kmerset-build --k 15 --check` on the card at 2^24 bases (run A,
-cutoff 1) and on ~3x-coverage reads (run B, cutoff 2), and requires each
-dump to be byte-identical to the reference CLI's host build of the same
-input.  Inputs are made from fixed seeds under build/chip_smoke/.
+It builds the port's CUDA kernels from the checkout's sources and holds
+each against its plain PyTorch version on the card: B1 (pack, k <= 15),
+B2 (pack, k = 17..23), B3 (compaction, int32 and int64 lanes), and the
+unitig graph front-end against itself on the CPU.  Then it drives the
+port's `kmerset-build --check` on the card: run A (k = 15, a 2^24-base
+genome, cutoff 1), run C (k = 23, the same genome, cutoff 1) and run D
+(k = 19, ~3x-coverage reads of a 2^22-base genome, cutoff 2).  Each dump
+must be byte-identical to the reference CLI's host build of the same input
+(those run as subprocesses beside the port's runs), and each run must go
+through its kernels and the device graph front-end.  Inputs are made from
+fixed seeds under build/chip_smoke/.
 
 Each phase prints one line.  The line before the last is a JSON summary of
 the kernels; the last line is {"ok": true, "device": {...}}.  Any failure
@@ -29,6 +34,7 @@ import statistics
 import subprocess
 import sys
 import time
+from typing import Tuple
 
 import numpy as np
 
@@ -100,77 +106,131 @@ def build_kernels() -> float:
     return dt
 
 
-def check_pack(torch, rng) -> dict:
+def check_pack(torch, rng, kernel: str, shapes) -> dict:
+    """Kernel B1 or B2 against the plain version at each (k, windows) in
+    `shapes`, canonical and forward, with and without `valid`.  Returns
+    its kernel-line entry, timed at the first shape."""
     from kmerset_tpu_torch.ops import backend, pack
 
     err, main_ms = 0, None
-    for k, n in ((15, 1 << 24), (7, 1 << 20), (11, 1 << 20)):
+    for k, n in shapes:
         L = n + k - 1
         codes = rng.integers(0, 4, L, dtype=np.uint8)
         packed = backend.stage(codes, np.array([0, L]), k, "cuda").packed
         valid = torch.from_numpy(rng.random(n) > 0.01).cuda()
-        for canonical, v in ((True, valid), (False, None)):
-            got = pack.canonical_windows(packed, L, k, canonical, v)
-            want = pack.canonical_windows_plain(packed, L, k, canonical, v)
-            torch.cuda.synchronize()
-            e = int((got.long() - want.long()).abs().max())
-            if got.shape != (n,) or e != 0:
-                raise AssertionError(f"B1 k={k} canonical={canonical}: max err {e}")
-            err = max(err, e)
+        for canonical in (True, False):
+            for v in (valid, None):
+                got = pack.canonical_windows(packed, L, k, canonical, v)
+                want = pack.canonical_windows_plain(packed, L, k, canonical, v)
+                torch.cuda.synchronize()
+                e = int((got - want).abs().max())
+                if got.shape != (n,) or got.dtype != want.dtype or e != 0:
+                    raise AssertionError(
+                        f"{kernel} k={k} canonical={canonical} "
+                        f"valid={v is not None}: max err {e}"
+                    )
+                err = max(err, e)
         ms = time_ms(lambda: pack.canonical_windows(packed, L, k, True, valid))
         plain = time_ms(
             lambda: pack.canonical_windows_plain(packed, L, k, True, valid), 3, 2
         )
-        say(2, f"B1 pack k={k} windows={n}: equal to plain (canonical and "
-               f"forward); kernel {ms:.4f} ms, plain {plain:.4f} ms")
+        say(2, f"{kernel} pack k={k} windows={n} ({got.dtype}): equal to plain "
+               f"(canonical and forward, with and without valid); kernel "
+               f"{ms:.4f} ms, plain {plain:.4f} ms")
         if main_ms is None:
             main_ms = (ms, plain)
-    return {"name": "B1 pack: canonical_windows", "route": "cuda",
-            "source": "kmerset_tpu_torch/csrc/pack.cu",
-            "replaces": "kmerset_tpu/ops/pallas_pack.py:34",
+    replaces = {"B1": "kmerset_tpu/ops/pallas_pack.py:34",
+                "B2": "kmerset_tpu/ops/pallas_pack.py:85"}[kernel]
+    return {"name": f"{kernel} pack: canonical_windows", "route": "cuda",
+            "source": "kmerset_tpu_torch/csrc/pack.cu", "replaces": replaces,
             "max_abs_err": err, "ms": main_ms[0], "plain_ms": main_ms[1]}
 
 
 def check_compact(torch, rng) -> dict:
+    """Kernel B3 against the plain version: int32 lanes (1 and 2, the
+    k = 15 count) and the [int64 key, int32 position] pair (the k = 19/23
+    count).  Timed at the k = 15 count's 2 int32 lanes, all kept."""
     from kmerset_tpu_torch.ops import compact
 
     err, main_ms = 0, None
     for n in (1 << 24, 5_000_011):
-        lane0 = torch.from_numpy(
+        lane32 = torch.from_numpy(
             rng.integers(-(1 << 31), (1 << 31) - 1, n, dtype=np.int32)
         ).cuda()
-        lane1 = torch.arange(n, dtype=torch.int32, device="cuda")
+        lane64 = torch.from_numpy(
+            rng.integers(-(1 << 62), 1 << 62, n, dtype=np.int64)
+        ).cuda()
+        pos = torch.arange(n, dtype=torch.int32, device="cuda")
         for frac in (0.0, 0.05, 0.5, 1.0):
             keep = torch.from_numpy(rng.random(n) < frac).cuda()
-            for lanes in ([lane0], [lane0, lane1]):
+            for name, lanes in (("int32", [lane32]), ("int32 x2", [lane32, pos]),
+                                ("int64+int32", [lane64, pos])):
                 got, ns = compact.compact_select(lanes, keep)
                 want, ns_p = compact.compact_select_plain(lanes, keep)
                 m = int(ns_p)
                 e = abs(int(ns) - m)
                 for g, w in zip(got, want):
+                    if g.dtype != w.dtype:
+                        raise AssertionError(f"B3 {name}: dtype {g.dtype}")
                     if m:
-                        e = max(e, int((g[:m].long() - w[:m].long()).abs().max()))
+                        e = max(e, int((g[:m] - w[:m]).abs().max()))
                 if e != 0:
                     raise AssertionError(
-                        f"B3 n={n} lanes={len(lanes)} keep={frac}: max err {e}"
+                        f"B3 n={n} lanes={name} keep={frac}: max err {e}"
                     )
                 err = max(err, e)
-                if n == 1 << 24:
+                if n == 1 << 24 and frac in (0.05, 1.0):
                     ms = time_ms(lambda: compact.compact_select(lanes, keep))
                     plain = time_ms(
                         lambda: compact.compact_select_plain(lanes, keep), 3, 2
                     )
-                    say(3, f"B3 compact n={n} lanes={len(lanes)} keep={frac}: "
+                    say(3, f"B3 compact n={n} lanes={name} keep={frac}: "
                            f"equal, n_sel={m}; kernel {ms:.4f} ms, "
                            f"plain {plain:.4f} ms")
-                    if len(lanes) == 2 and frac == 1.0:
+                    if name == "int32 x2" and frac == 1.0:
                         main_ms = (ms, plain)
-        say(3, f"B3 compact n={n}: kernel equal to plain for 1 and 2 lanes, "
-               "keep fractions 0, 0.05, 0.5, 1")
+        say(3, f"B3 compact n={n}: kernel equal to plain for lanes int32, "
+               "int32 x2 and int64+int32, keep fractions 0, 0.05, 0.5, 1")
     return {"name": "B3 compact: compact_select", "route": "cuda",
             "source": "kmerset_tpu_torch/csrc/compact.cu",
             "replaces": "kmerset_tpu/ops/pallas_compact.py:118",
             "max_abs_err": err, "ms": main_ms[0], "plain_ms": main_ms[1]}
+
+
+def check_front_end(torch, rng) -> None:
+    """The unitig front-end (torch ops around the join) on cuda equal to
+    the same function on the CPU, on a ~2^20-k-mer set at k = 23: a guard
+    that the shifts behave alike on both devices.  Times lookup_join at
+    the front-end's query shape (8 queries per k-mer)."""
+    from kmerset_tpu_torch.ops import backend, join, unitigs
+    from kmerset_tpu_torch.ops import count as count_ops
+
+    k = 23
+    L = (1 << 20) + k - 1
+    codes = rng.integers(0, 4, L, dtype=np.uint8)
+    staged = backend.stage(codes, np.array([0, L]), k, "cuda")
+    A, n, _ = count_ops.count_to_set_frag(*staged, k, True, 1)
+    got = unitigs.unitig_succ(A, k)
+    want = unitigs.unitig_succ(A.cpu(), k)
+    torch.cuda.synchronize()
+    for name, g, w in zip(("succ", "term_l", "term_r", "both"), got, want):
+        if not torch.equal(g.cpu(), w):
+            raise AssertionError(f"front-end {name} differs between cuda and cpu")
+    ms = time_ms(lambda: unitigs.unitig_succ(A, k), 5, 3)
+    chains = int((got[0] >= 0).sum())
+    say(4, f"front-end k={k} n={n}: unitig_succ on cuda equal to cpu "
+           f"({chains} non-terminal exits); device {ms:.4f} ms")
+    for m in (1 << 20, 1 << 24):
+        S = torch.unique(torch.randint(0, 1 << 46, (m,), device="cuda"))
+        Q = torch.cat([S[torch.randint(0, S.shape[0], (4 * m,), device="cuda")],
+                       torch.randint(0, 1 << 46, (4 * m,), device="cuda")])
+        found, idx = join.lookup_join(S, Q)
+        hit = found[: 4 * m]
+        if not bool(hit.all()) or not torch.equal(S[idx[: 4 * m]], Q[: 4 * m]):
+            raise AssertionError(f"lookup_join n={m}: a member was not found")
+        ms = time_ms(lambda: join.lookup_join(S, Q), 5, 3)
+        say(4, f"lookup_join n={S.shape[0]} queries={Q.shape[0]} (half "
+               f"members): {ms:.4f} ms")
 
 
 _BASES = np.frombuffer(b"ACGT", dtype=np.uint8)
@@ -208,7 +268,7 @@ def write_reads_fasta(path: str, rng, genome_bases: int, coverage: float) -> Non
 
 class _Capture(logging.Handler):
     def __init__(self):
-        super().__init__()
+        super().__init__(logging.DEBUG)
         self.records = []
 
     def emit(self, record):
@@ -217,6 +277,14 @@ class _Capture(logging.Handler):
 
 _LOGGED = ("cutoff_count", "kmer_set.Size()", "kmer_set.Hash()",
            "kmer_set_compact.Size()")
+# Debug lines of the port's SPSS build (core/spss.py, through the
+# reference's _phase: "name: 1.23s"; ops/unitigs.py: the front-end's
+# upload, device and download).
+_PHASES = ("unitigs: device front-end", "unitigs: chain walk",
+           "unitigs: emission + cycles", "spss: path cover")
+_FRONT_END_IO = re.compile(
+    r"upload ([\d.]+) s, device ([\d.]+) s, download ([\d.]+) s"
+)
 
 
 def _logged_values(lines) -> dict:
@@ -229,69 +297,121 @@ def _logged_values(lines) -> dict:
     return out
 
 
-def main_path_run(tag: str, fasta: str, cutoff: int) -> dict:
+def _phase_times(lines) -> dict:
+    out = {}
+    for line in lines:
+        for name in _PHASES:
+            m = re.fullmatch(re.escape(name) + r": ([\d.]+)s", line)
+            if m:
+                out[name] = float(m.group(1))
+        m = _FRONT_END_IO.search(line)
+        if m:
+            out.update(zip(("front-end upload", "front-end device",
+                            "front-end download"), map(float, m.groups())))
+    return out
+
+
+class RefRun:
+    """The reference CLI's host build of one input, in a subprocess that
+    runs beside the port's runs."""
+
+    def __init__(self, tag: str, fasta: str, k: int, cutoff: int):
+        self.out = os.path.join(WORK, f"{tag}_ref.txt")
+        self.err = open(os.path.join(WORK, f"{tag}_ref.log"), "w+")
+        env = dict(os.environ, KMERSET_TPU_FORCE_BACKEND="host",
+                   JAX_PLATFORMS="cpu")
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "kmerset_tpu.cli.kmerset_build", "--k",
+             str(k), "--cutoff", str(cutoff), "--check", "--out", self.out,
+             fasta],
+            stdout=subprocess.DEVNULL, stderr=self.err, env=env, cwd=ROOT,
+        )
+
+    def wait(self, timeout: float) -> Tuple[str, float]:
+        """(stderr, wall s) once it exits; raises if it failed."""
+        rc = self.proc.wait(timeout=timeout)
+        secs = time.perf_counter() - self.t0
+        self.err.seek(0)
+        stderr = self.err.read()
+        self.err.close()
+        if rc != 0:
+            raise RuntimeError(f"reference CLI failed:\n{stderr[-4000:]}")
+        return stderr, secs
+
+    def kill(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+
+
+def main_path_run(torch, tag: str, fasta: str, k: int, cutoff: int,
+                  ref: RefRun, kernels: Tuple[str, ...]) -> dict:
     """Port CLI in-process on cuda against the reference CLI's host build
-    in a subprocess; returns the port's phase times."""
+    (`ref`); `kernels` are the launch counters this path must raise.
+    Returns the launch counts and the port's phase times."""
     from kmerset_tpu_torch.cli import kmerset_build
     from kmerset_tpu_torch.ops import compact, pack
 
-    stem = os.path.splitext(fasta)[0]
-    out_port, out_ref = f"{stem}_port.txt", f"{stem}_ref.txt"
+    out_port = os.path.join(WORK, f"{tag}_port.txt")
     cap = _Capture()
     log = logging.getLogger(CLI_LOGGER)
     log.addHandler(cap)
-    pack.launches = compact.launches = 0
+    pack.launches = pack.launches_pair = compact.launches = 0
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.time()
     try:
         kmerset_build.main([
-            "--device", "cuda", "--k", "15", "--cutoff", str(cutoff),
+            "--device", "cuda", "--k", str(k), "--cutoff", str(cutoff),
             "--check", "--out", out_port, fasta,
         ])
     finally:
         log.removeHandler(cap)
     t_end = time.time()
-    launches = {"pack": pack.launches, "compact": compact.launches}
-
-    env = dict(os.environ, KMERSET_TPU_FORCE_BACKEND="host", JAX_PLATFORMS="cpu")
-    r0 = time.perf_counter()
-    ref = subprocess.run(
-        [sys.executable, "-m", "kmerset_tpu.cli.kmerset_build", "--k", "15",
-         "--cutoff", str(cutoff), "--check", "--out", out_ref, fasta],
-        capture_output=True, text=True, env=env, cwd=ROOT, timeout=900,
-    )
-    ref_s = time.perf_counter() - r0
-    if ref.returncode != 0:
-        raise RuntimeError(f"reference CLI failed:\n{ref.stderr[-4000:]}")
+    peak_gib = torch.cuda.max_memory_allocated() / (1 << 30)
+    launches = {"B1": pack.launches, "B2": pack.launches_pair,
+                "B3": compact.launches}
+    ref_err, ref_s = ref.wait(timeout=900)
 
     msgs = [m for _, m in cap.records]
     at = {m: t for t, m in cap.records}
     if "kmer_set_compact -> KmerSet: ok" not in msgs:
         raise AssertionError(f"{tag}: the port's --check did not log ok")
-    if "kmer_set_compact -> KmerSet: ok" not in ref.stderr:
+    if "kmer_set_compact -> KmerSet: ok" not in ref_err:
         raise AssertionError(f"{tag}: the reference's --check did not log ok")
-    mine, theirs = _logged_values(msgs), _logged_values(ref.stderr.splitlines())
+    mine, theirs = _logged_values(msgs), _logged_values(ref_err.splitlines())
     if mine != theirs or len(mine) != len(_LOGGED):
         raise AssertionError(f"{tag}: logged values differ: {mine} vs {theirs}")
-    if not filecmp.cmp(out_port, out_ref, shallow=False):
+    if not filecmp.cmp(out_port, ref.out, shallow=False):
         raise AssertionError(f"{tag}: dump differs from the reference's")
-    for name, n in launches.items():
-        if n <= 0:
+    for name in kernels:
+        if launches[name] <= 0:
             raise AssertionError(f"{tag}: kernel {name} was not launched")
+    spss = _phase_times(msgs)
+    if len(spss) != len(_PHASES) + 3:
+        raise AssertionError(f"{tag}: the device front-end did not run: {spss}")
     times = {
         "count_s": at["constructed kmer_counter"] - at["constructing kmer_counter"],
-        "spss_host_s": at["constructed kmer_set_compact"]
+        "spss_s": at["constructed kmer_set_compact"]
         - at["constructing kmer_set_compact"],
         "check_s": at["kmer_set_compact -> KmerSet: ok"]
         - at["constructed kmer_set_compact"],
         "total_s": t_end - t0,
         "reference_host_total_s": ref_s,
     }
-    say(tag, f"--k 15 --cutoff {cutoff} --check: dump byte-identical to the "
+    host = sum(spss[p] for p in _PHASES[1:])
+    say(tag, f"--k {k} --cutoff {cutoff} --check: dump byte-identical to the "
              f"reference host CLI ({os.path.getsize(out_port)} bytes); "
              f"size {mine['kmer_set.Size()']}, hash {mine['kmer_set.Hash()']}, "
              f"cutoff_count {mine['cutoff_count']}; check ok; "
-             f"launches {launches}")
-    say(tag, "wall s: " + ", ".join(f"{k} {v:.3f}" for k, v in times.items()))
+             f"launches {launches}; peak device memory {peak_gib:.3f} GiB")
+    say(tag, "wall s: " + ", ".join(f"{n} {v:.3f}" for n, v in times.items()))
+    say(tag, f"SPSS split, s: device front-end (succ on the host) "
+             f"{spss[_PHASES[0]]:.2f} [upload {spss['front-end upload']:.4f}, "
+             f"device {spss['front-end device']:.4f}, download "
+             f"{spss['front-end download']:.4f}]; host walk + emission + "
+             f"path cover {host:.2f} [" + ", ".join(
+                 f"{p} {spss[p]:.2f}" for p in _PHASES[1:]) + "]")
     return {"launches": launches, **times}
 
 
@@ -311,33 +431,56 @@ def main() -> int:
     os.environ["KMERSET_TPU_FORCE_BACKEND"] = "host"
     import kmerset_tpu_torch  # noqa: F401 - fails outside a checkout
 
+    t_start = time.perf_counter()
     os.makedirs(WORK, exist_ok=True)
-    # The CLI's log lines, at info level, on stderr; the CLI's own logger
-    # set-up leaves a logger that already has a handler as it is.
+    # The CLI's log lines, at info level, on stderr; the port's SPSS phase
+    # times are debug lines, kept by main_path_run's capture only.  The
+    # CLI's own logger set-up leaves a logger that already has a handler
+    # as it is.
     log = logging.getLogger(CLI_LOGGER)
-    log.setLevel(logging.INFO)
+    log.setLevel(logging.DEBUG)
     log.propagate = False
     echo = logging.StreamHandler(sys.stderr)
+    echo.setLevel(logging.INFO)
     echo.setFormatter(logging.Formatter("[%(asctime)s] %(message)s"))
     log.addHandler(echo)
     environment(torch)
     build_kernels()
     rng = np.random.default_rng(SEED)
-    kernels = [check_pack(torch, rng), check_compact(torch, rng)]
+    kernels = [
+        check_pack(torch, rng, "B1", ((15, 1 << 24), (7, 1 << 20), (11, 1 << 20))),
+        check_pack(torch, rng, "B2", ((23, 1 << 24), (19, 1 << 24),
+                                      (17, 1 << 20), (21, 1 << 20))),
+        check_compact(torch, rng),
+    ]
+    check_front_end(torch, rng)
 
-    fasta_a = os.path.join(WORK, "run_a.fa")
+    fasta_a = os.path.join(WORK, "genome.fa")
     write_genome_fasta(fasta_a, rng, 1 << 24)
-    run_a = main_path_run("4 run A", fasta_a, 1)
-    fasta_b = os.path.join(WORK, "run_b.fa")
-    write_reads_fasta(fasta_b, rng, 1 << 22, 3.0)
-    run_b = main_path_run("5 run B", fasta_b, 2)
+    fasta_d = os.path.join(WORK, "reads.fa")
+    write_reads_fasta(fasta_d, rng, 1 << 22, 3.0)
+    plan = (("5 run A", fasta_a, 15, 1, ("B1", "B3")),
+            ("6 run C", fasta_a, 23, 1, ("B2", "B3")),
+            ("7 run D", fasta_d, 19, 2, ("B2", "B3")))
+    refs = [RefRun(tag.split()[-1], fasta, k, cutoff)
+            for tag, fasta, k, cutoff, _ in plan]
+    try:
+        runs = [main_path_run(torch, tag, fasta, k, cutoff, ref, need)
+                for (tag, fasta, k, cutoff, need), ref in zip(plan, refs)]
+    finally:
+        for ref in refs:
+            ref.kill()
 
-    for kern, key in zip(kernels, ("pack", "compact")):
-        kern["launches"] = run_a["launches"][key] + run_b["launches"][key]
+    for kern in kernels:
+        name = kern["name"].split()[0]
+        kern["launches"] = sum(run["launches"][name] for run in runs)
+        if kern["launches"] <= 0:
+            raise AssertionError(f"kernel {name} was not launched by the runs")
     if "jax" in sys.modules:
         raise AssertionError("jax was imported during the port's run")
-    say(6, f"launch counts over runs A and B: pack {kernels[0]['launches']}, "
-           f"compact {kernels[1]['launches']}; jax not in sys.modules")
+    say(8, "launch counts over runs A, C and D: " + ", ".join(
+        f"{k['name'].split()[0]} {k['launches']}" for k in kernels)
+        + f"; jax not in sys.modules; {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

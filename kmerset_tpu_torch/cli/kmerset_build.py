@@ -3,11 +3,13 @@ SPSS-compressed k-mer set file.
 
 Same flags and log lines as kmerset_tpu/cli/kmerset_build.py, plus
 --device (default cuda; a missing CUDA device is an error, never a quiet
-CPU run).  Counting and the --check decode run on the device through the
-port's kernels; the cutoff filter, the SPSS build and the dump are the
-reference's host code.  This slice takes k <= 15; --k 19 and --k 23 need
-the pair-lane pack kernel B2 (slice 2, ROADMAP A.4) and exit 1.  There is
-no multi-process bring-up (multi-GPU is ROADMAP A.8).
+CPU run).  It takes k = 15, 19 and 23 (k = 31, which the reference also
+takes, exits 1).  Counting and the --check decode run on the device
+through the port's kernels (B1 for k = 15, B2 for k = 19 and 23, then
+B3), and so does the canonical SPSS build's unitig graph front-end; the
+cutoff filter, the chain walk, the string emission, the path cover and
+the dump are the reference's host code.  There is no multi-process
+bring-up (multi-GPU is ROADMAP A.8).
 """
 
 from __future__ import annotations
@@ -28,9 +30,10 @@ from ..utils import flags as flag_util
 
 
 def main(argv=None) -> None:
-    # The reused host graph code routes through the reference's backend
-    # probes, which would import JAX (and let it claim the GPU) unless the
-    # reference's documented switch pins them to their host arms.
+    # The reused host graph code (the chain walk's and the path cover's
+    # mesh gates) routes through the reference's backend probes, which
+    # would import JAX (and let it claim the GPU) unless the reference's
+    # documented switch pins them to their host arms.
     os.environ["KMERSET_TPU_FORCE_BACKEND"] = "host"
 
     parser = argparse.ArgumentParser(
@@ -66,12 +69,8 @@ def main(argv=None) -> None:
         enable_debug_logs()
     flag_util.check_k(args.k)
     if args.k > MAX_K:
-        print(
-            f"k={args.k} is not ported yet: this package counts k <= {MAX_K}; "
-            "k = 19 and 23 need the pair-lane pack kernel B2 "
-            "(slice 2, ROADMAP A.4)",
-            file=sys.stderr,
-        )
+        print(f"k={args.k} is not ported: this package counts k <= {MAX_K}",
+              file=sys.stderr)
         raise SystemExit(1)
     try:
         device = resolve_device(args.device)

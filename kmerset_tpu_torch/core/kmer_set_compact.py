@@ -1,8 +1,11 @@
 """KmerSetCompact on an explicit torch device.
 
-Subclass of kmerset_tpu.core.kmer_set_compact.KmerSetCompact whose decode
-(kmers, :125-133) runs through the port's spss.decode_unique_kmers on its
-device.  The SPSS build, dump and metrics are the reference's.
+Subclass of kmerset_tpu.core.kmer_set_compact.KmerSetCompact.  Its
+canonical build (from_kmer_set, reference :97-121) runs the unitig graph
+front-end on its device through the port's spss.get_spss_canonical; the
+directed build is the reference's host get_spss.  Its decode (kmers,
+:125-133) runs through the port's spss.decode_unique_kmers on its device.
+The dump and metrics are the reference's.
 """
 
 from __future__ import annotations
@@ -12,6 +15,7 @@ from typing import Optional
 import numpy as np
 
 from kmerset_tpu.core import kmer_set_compact as ref
+from kmerset_tpu.core import spss as ref_spss
 from kmerset_tpu.core.kmer_set import KmerSet
 from kmerset_tpu.core.strings import PackedStrings
 
@@ -30,10 +34,15 @@ class KmerSetCompact(ref.KmerSetCompact):
     def from_kmer_set(
         cls, kmer_set: KmerSet, canonical: bool, fast: bool = True, *, device
     ) -> "KmerSetCompact":
-        """Builds the SPSS on the host (the reference's build) and keeps
-        the source k-mers as the decode cache, as the reference does."""
-        built = ref.KmerSetCompact.from_kmer_set(kmer_set, canonical, fast)
-        obj = cls(kmer_set.k, built.spss, device=device)
+        """Builds the SPSS (canonical: graph front-end on `device`, walk
+        and path cover on the host; directed: the reference's host build)
+        and keeps the source k-mers as the decode cache, as the reference
+        does."""
+        if canonical:
+            built = spss_mod.get_spss_canonical(kmer_set, fast, device=device)
+        else:
+            built = ref_spss.get_spss(kmer_set)
+        obj = cls(kmer_set.k, built, device=device)
         obj._kmers_cache = kmer_set.kmers
         obj._cache_canonical = canonical
         return obj

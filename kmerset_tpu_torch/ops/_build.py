@@ -106,10 +106,11 @@ def _bind(lib: ctypes.CDLL) -> None:
     sigs = {
         # packed, L, k, canonical, valid, out, n_out, stream
         "kmerset_pack_canonical": [p, i64, i32, i32, p, p, i64, p],
+        "kmerset_pack_canonical64": [p, i64, i32, i32, p, p, i64, p],
         # keep, n, block_counts, stream
         "kmerset_compact_count": [p, i64, p, p],
-        # lane0, lane1, lane2, n_lanes, keep, n, block_offsets, out, stream
-        "kmerset_compact_scatter": [p, p, p, i32, p, i64, p, p, p],
+        # src0-2, dst0-2, width0-2, n_lanes, keep, n, block_offsets, stream
+        "kmerset_compact_scatter": [p] * 6 + [i32] * 4 + [p, i64, p, p],
         "kmerset_compact_tile": [],
     }
     for name, argtypes in sigs.items():

@@ -13,7 +13,8 @@ There is no host fallback: on CUDA an error raises.  Left for later slices
 (ROADMAP A): the slow-link probe and gap-encoded key downloads, resident
 device handles and side-code prefetch, the out-of-core chunked path and
 the mesh.  No pow2 padding either (good_sort_size exists for the TPU
-sort).
+sort).  The unitig front-end stages its set itself
+(ops/unitigs.py:device_unitig_succ), under MAX_DEVICE_GRAPH_KMERS.
 """
 
 from __future__ import annotations
@@ -30,6 +31,10 @@ from . import count as count_ops
 # The kernels index windows and keys with int32 (the position lane of the
 # compaction carries run-head positions as int32).
 MAX_WINDOWS = (1 << 31) - 1
+# The one-shot device unitig front-end (ops/unitigs.py) takes sets up to
+# the reference's cap (kmerset_tpu/ops/backend.py:390); larger sets need
+# the out-of-core front-end (ROADMAP A.6).
+MAX_DEVICE_GRAPH_KMERS = 1 << 26
 
 
 class Staged(NamedTuple):
@@ -73,8 +78,9 @@ def host_library_loaded() -> bool:
 def _count_fetch(keys, counts, value_max: int) -> Tuple[np.ndarray, np.ndarray]:
     """(keys int64, counts) on the host.  With value_max > 0 the counts are
     saturated on the device and, up to 255, downloaded as uint8
-    (reference backend.py:776-789); k <= 15 keys cross as int32."""
-    keys = keys.cpu().numpy().astype(np.int64)
+    (reference backend.py:776-789).  Keys cross in their device dtype:
+    int32 for k <= 15, int64 above."""
+    keys = keys.cpu().numpy().astype(np.int64, copy=False)
     if value_max:
         counts = torch.clamp(counts, max=value_max)
         if value_max <= 255:
@@ -104,4 +110,4 @@ def device_unique(
     if staged is None:
         return np.empty(0, np.int64)
     keys, _, _ = count_ops.count_to_set_frag(*staged, k, canonical, 1)
-    return keys.cpu().numpy().astype(np.int64)
+    return keys.cpu().numpy().astype(np.int64, copy=False)

@@ -1,10 +1,12 @@
 """Kernel B3: order-preserving stream compaction (csrc/compact.cu).
 
 Counterpart of kmerset_tpu/ops/pallas_compact.py:compact_select_multi.
-Where the TPU version needs sorted lanes with flag-bit headroom and a
-length that is a multiple of its 8192-element row (it partitions each row
-with a sort first), this one takes any 1-3 int32 lanes of any length: on
-the reference's domain the kept prefix and n_sel are the same.
+Where the TPU version needs sorted int32 lanes with flag-bit headroom and
+a length that is a multiple of its 8192-element row (it partitions each
+row with a sort first), this one takes any 1-3 int32 or int64 lanes of
+any length: on the reference's domain the kept prefix and n_sel are the
+same.  An int64 lane carries the k = 19/23 keys that the reference splits
+into (hi, lo) int32 lanes.
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ from typing import Sequence, Tuple
 import torch
 
 MAX_LANES = 3
+LANE_DTYPES = (torch.int32, torch.int64)
 
 # Wrapper calls that launched the kernels since the last reset.
 launches = 0
@@ -23,14 +26,14 @@ def compact_select_plain(
     lanes: Sequence[torch.Tensor], keep: torch.Tensor
 ) -> Tuple[Tuple[torch.Tensor, ...], torch.Tensor]:
     """Plain PyTorch B3: `lane[keep]`, zero-padded back to n."""
-    n = keep.shape[0]
     mask = keep.to(torch.bool)
-    out = torch.zeros(len(lanes), n, dtype=torch.int32, device=keep.device)
-    n_sel = mask.sum(dtype=torch.int32)
-    for b, lane in enumerate(lanes):
+    outs = []
+    for lane in lanes:
+        out = torch.zeros_like(lane)
         sel = lane[mask]
-        out[b, : sel.shape[0]] = sel
-    return tuple(out.unbind(0)), n_sel
+        out[: sel.shape[0]] = sel
+        outs.append(out)
+    return tuple(outs), mask.sum(dtype=torch.int32)
 
 
 def _check(lanes, keep) -> int:
@@ -47,8 +50,8 @@ def _check(lanes, keep) -> int:
         if not lane.is_contiguous():
             raise ValueError("lanes and keep must be contiguous")
     for lane in lanes:
-        if lane.dtype != torch.int32 or lane.shape != (n,):
-            raise TypeError(f"every lane must be a ({n},) int32 tensor")
+        if lane.dtype not in LANE_DTYPES or lane.shape != (n,):
+            raise TypeError(f"every lane must be a ({n},) int32 or int64 tensor")
     return n
 
 
@@ -57,9 +60,10 @@ def compact_select(
 ) -> Tuple[Tuple[torch.Tensor, ...], torch.Tensor]:
     """Compacts the kept positions of every lane to a prefix, in order.
 
-    Returns (lanes_out, n_sel): lanes_out[b][:n_sel] = lanes[b][keep];
-    entries from n_sel on are undefined (callers fill them).  n_sel is a
-    0-dim int32 tensor on the lanes' device (reading it syncs).
+    Returns (lanes_out, n_sel): lanes_out[b][:n_sel] = lanes[b][keep],
+    each in its lane's dtype; entries from n_sel on are undefined (callers
+    trim them).  n_sel is a 0-dim int32 tensor on the lanes' device
+    (reading it syncs).
 
     A CUDA tensor runs kernel B3; a CPU tensor runs the plain version."""
     n = _check(lanes, keep)
@@ -68,17 +72,19 @@ def compact_select(
         return compact_select_plain(lanes, keep)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
-    out = torch.empty(len(lanes), n, dtype=torch.int32, device=dev)
+    outs = tuple(torch.empty_like(lane) for lane in lanes)
     if n == 0:
-        return tuple(out.unbind(0)), torch.zeros((), dtype=torch.int32, device=dev)
+        return outs, torch.zeros((), dtype=torch.int32, device=dev)
     from . import _build
 
     lib = _build.load()
     tile = lib.kmerset_compact_tile()
     counts = torch.empty((n + tile - 1) // tile, dtype=torch.int32, device=dev)
     keep8 = keep.view(torch.uint8) if keep.dtype == torch.bool else keep
-    ptrs = [lane.data_ptr() for lane in lanes]
-    ptrs += [None] * (MAX_LANES - len(ptrs))
+    pad = [None] * (MAX_LANES - len(lanes))
+    srcs = [lane.data_ptr() for lane in lanes] + pad
+    dsts = [out.data_ptr() for out in outs] + pad
+    widths = [lane.element_size() for lane in lanes] + [0] * len(pad)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         _build.check(
@@ -91,11 +97,11 @@ def compact_select(
         _build.check(
             lib,
             lib.kmerset_compact_scatter(
-                *ptrs, len(lanes), keep8.data_ptr(), n, offsets.data_ptr(),
-                out.data_ptr(), stream,
+                *srcs, *dsts, *widths, len(lanes), keep8.data_ptr(), n,
+                offsets.data_ptr(), stream,
             ),
             "compact scatter kernel",
         )
     global launches
     launches += 1
-    return tuple(out.unbind(0)), inclusive[-1]
+    return outs, inclusive[-1]

@@ -1,21 +1,27 @@
-"""Device k-mer counting pipeline, k <= 15 (the single int32 key layout).
+"""Device k-mer counting pipeline, k <= 23.
 
 Counterpart of kmerset_tpu/ops/count.py, on torch tensors:
 
-    unpack + pack windows + canonical min + validity sentinel (kernel B1)
-    -> sort -> run heads -> [cutoff test] -> compaction (kernel B3)
+    unpack + pack windows + canonical min + validity sentinel
+    (kernel B1 for k <= 15, B2 above) -> sort -> run heads
+    -> [cutoff test] -> compaction (kernel B3)
 
 Counts come out as differences between compacted run-head positions, as
 in the reference's compaction-kernel branches (count.py:356-368,
 451-457).  The sort is torch.sort, as the reference's is XLA's sort
 outside any Pallas kernel.  Outputs are the reference's trimmed to their
-live prefix: int32 keys (2k <= 30 bits) and counts, and the prefix length
-as a Python int (reading it is the pipeline's one host sync).
+live prefix: int32 keys for k <= 15 (2k <= 30 bits), int64 keys above
+(2k <= 46 bits: the reference's pair lanes combined, count.py:174-182),
+int32 counts, and the prefix length as a Python int (reading it is the
+pipeline's one host sync).  Where the reference sorts the pair lanes with
+lax.sort(num_keys=2) (count.py:271), the port sorts one int64 key: the
+same order.
 
 Not carried over, because they exist for the TPU only: good_sort_size
 (sort-friendly padding), _use_pallas (backend probing), _compact_runs
 (a flag-fused second sort standing in for slow TPU scatters) and
-jax_enable_x64.  Pair keys (k = 19, 23: kernel B2) are a later slice.
+jax_enable_x64.  The reference's int64 layout for k > 23 is not ported:
+the CLIs take k = 15, 19 and 23.
 """
 
 from __future__ import annotations
@@ -23,7 +29,7 @@ from __future__ import annotations
 import torch
 
 from .compact import compact_select
-from .pack import MAX_K, S_SENT, canonical_windows
+from .pack import MAX_K, SINGLE_MAX_K, canonical_windows, key_sentinel
 
 # Cutoffs up to this stay shifted compares (_run_reaches); above it the
 # scan-based run lengths (reference count.py:434).
@@ -54,23 +60,20 @@ def _no_mark(step: str) -> None:
 
 def _sorted_runs(packed, bounds, total: int, L: int, k: int, canonical: bool,
                  mark=_no_mark):
-    """Sorted int32 window keys (invalid windows hold S_SENT and sort
-    last) with their live and run-head masks (reference count.py:253-266,
-    the single-lane branch)."""
+    """Sorted window keys (int32 for k <= 15, int64 above; invalid windows
+    hold the sentinel and sort last) with their live and run-head masks
+    (reference count.py:253-282, the single-lane and pair branches)."""
     if not 1 <= k <= MAX_K:
-        raise ValueError(
-            f"k={k}: the port counts k <= {MAX_K}; pair keys (k = 19, 23) "
-            "need kernel B2 (ROADMAP A.4)"
-        )
+        raise ValueError(f"k={k}: the port counts k <= {MAX_K}")
     n_keys = L - (k - 1)
     valid = _frag_window_validity(bounds, total, L, k)[:n_keys].contiguous()
     mark("validity")
     key = canonical_windows(packed, L, k, canonical, valid)
-    mark("B1 pack")
+    mark("B1 pack" if k <= SINGLE_MAX_K else "B2 pack")
     s = torch.sort(key).values
     mark("sort")
     prev = torch.cat([s.new_full((1,), -1), s[:-1]])
-    live = s != S_SENT
+    live = s != key_sentinel(k)
     boundary = live & (s != prev)
     mark("run heads")
     return s, live, boundary
@@ -90,7 +93,7 @@ def _run_lengths(boundary: torch.Tensor, live: torch.Tensor) -> torch.Tensor:
 def _run_reaches(s: torch.Tensor, live: torch.Tensor, c: int):
     """True at run heads of the sorted keys `s` whose run has >= c keys:
     position i+c-1 is live and holds the same key (reference
-    count.py:298-316, for the single key lane)."""
+    count.py:298-316, on one key lane of either width)."""
     n = live.shape[0]
     if c <= 1:
         return torch.ones_like(live)
@@ -107,8 +110,9 @@ def count_kmers_frag(packed, bounds, total: int, L: int, k: int,
     `packed` (2-bit, kmerio_pack2 layout) split at the fragment
     boundaries `bounds` (int32: offsets[1:], possibly padded by repeating
     `total`).  Returns (keys, counts, n_unique): the sorted distinct keys
-    and their counts, both (n_unique,) int32 (reference count.py:418-429,
-    trimmed).  `mark(step)` is called after each step; the profiling tool
+    and their counts, (n_unique,) keys (int32 for k <= 15, int64 above)
+    and int32 counts (reference count.py:418-429, trimmed).  `mark(step)`
+    is called after each step; the profiling tool
     (tools/profile_count.py) records a CUDA event there."""
     s, live, boundary = _sorted_runs(packed, bounds, total, L, k, canonical, mark)
     pos = torch.arange(s.shape[0], dtype=torch.int32, device=s.device)
@@ -127,7 +131,8 @@ def count_to_set_frag(
 ):
     """The cutoff-filtered distinct k-mers of the same input as
     count_kmers_frag (reference count.py:437-471, the compaction-kernel
-    branch).  Returns (keys (n_kept,) int32, n_kept, n_cut)."""
+    branch).  Returns (keys, n_kept, n_cut): keys (n_kept,), int32 for
+    k <= 15 and int64 above."""
     s, live, boundary = _sorted_runs(packed, bounds, total, L, k, canonical)
     if cutoff <= _MAX_SHIFT_CUTOFF:
         keep = boundary & _run_reaches(s, live, cutoff)

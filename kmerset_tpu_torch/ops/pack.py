@@ -1,12 +1,18 @@
-"""Kernel B1: canonical window keys for k <= 15 (csrc/pack.cu).
+"""Kernels B1 (k <= 15) and B2 (15 < k <= 23): canonical window keys
+(csrc/pack.cu).
 
-Counterpart of kmerset_tpu/ops/pallas_pack.py:canonical_windows_pallas and
-of the XLA roll formulation in kmerset_tpu/ops/count.py (_pack_contig,
-_pack_span_rc, _single_windows).  The kernel also fuses two neighbours of
-the reference pipeline: it reads the 2-bit packed upload (the reference
-unpacks it first, count.py:_unpack2) and writes the sort sentinel where a
-window is invalid (count.py:257).  `unpack2` below is the plain form of
-that unpack.
+Counterpart of kmerset_tpu/ops/pallas_pack.py:canonical_windows_pallas
+(B1) and canonical_windows_pair_pallas (B2), and of the XLA roll
+formulation in kmerset_tpu/ops/count.py (_pack_contig, _pack_span_rc,
+_single_windows, _pair_windows).  B1 writes one int32 key per window.  B2
+writes one int64 key, (hi << 2*klo) | lo, where the TPU kernel writes the
+(hi, lo) int32 lanes: the reference combines them that way itself
+(count.py:canonical_windows), and the int64 order is the lanes'
+lexicographic order.  The kernels also fuse two neighbours of the
+reference pipeline: they read the 2-bit packed upload (the reference
+unpacks it first, count.py:_unpack2) and write the sort sentinel where a
+window is invalid (count.py:257, 269).  `unpack2` below is the plain form
+of that unpack.
 """
 
 from __future__ import annotations
@@ -15,12 +21,26 @@ from typing import Optional
 
 import torch
 
-S_SENT = (1 << 31) - 1  # reference ops/count.py _S_SENT
-MAX_K = 15  # 2k <= 30 bits: one non-negative int32 key
+S_SENT = (1 << 31) - 1  # reference ops/count.py _S_SENT (int32 keys)
+SENTINEL = 1 << 62  # reference ops/count.py SENTINEL (int64 keys)
+SINGLE_MAX_K = 15  # 2k <= 30 bits: one non-negative int32 key (B1)
+MAX_K = 23  # 2k <= 46 bits: one int64 key (B2)
 
-# Kernel launches since the last reset (plain integer; a run sets it to 0
-# and reads it to show its main path went through the kernel).
+# Kernel launches since the last reset (plain integers; a run sets them to
+# 0 and reads them to show its main path went through the kernels):
+# `launches` counts B1, `launches_pair` counts B2.
 launches = 0
+launches_pair = 0
+
+
+def key_dtype(k: int) -> torch.dtype:
+    """The window keys' dtype at k: int32 through SINGLE_MAX_K, else int64."""
+    return torch.int32 if k <= SINGLE_MAX_K else torch.int64
+
+
+def key_sentinel(k: int) -> int:
+    """The sort sentinel of invalid windows at k (sorts after every key)."""
+    return S_SENT if k <= SINGLE_MAX_K else SENTINEL
 
 
 def unpack2(packed: torch.Tensor, L: int) -> torch.Tensor:
@@ -37,10 +57,12 @@ def canonical_windows_plain(
     packed: torch.Tensor, L: int, k: int, canonical: bool = True,
     valid: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Plain PyTorch B1: a direct k-step loop over shifted code slices."""
-    codes = unpack2(packed, L)
+    """Plain PyTorch B1/B2: a direct k-step loop over shifted code slices,
+    on int32 through SINGLE_MAX_K and on int64 above.  Every operand is
+    non-negative, so no shift sees a sign bit."""
+    codes = unpack2(packed, L).to(key_dtype(k))
     n = L - k + 1
-    fwd = torch.zeros(n, dtype=torch.int32, device=packed.device)
+    fwd = torch.zeros(n, dtype=codes.dtype, device=packed.device)
     rc = torch.zeros_like(fwd)
     for j in range(k):
         c = codes[j : j + n]
@@ -48,13 +70,13 @@ def canonical_windows_plain(
         rc = rc | ((3 - c) << (2 * j))
     key = torch.minimum(fwd, rc) if canonical else fwd
     if valid is not None:
-        key = torch.where(valid, key, torch.full_like(key, S_SENT))
+        key = torch.where(valid, key, torch.full_like(key, key_sentinel(k)))
     return key
 
 
 def _check(packed, L, k, valid) -> int:
     if not 1 <= k <= MAX_K:
-        raise ValueError(f"pack kernel takes 1 <= k <= {MAX_K}, got {k}")
+        raise ValueError(f"pack kernels take 1 <= k <= {MAX_K}, got {k}")
     if packed.dtype != torch.uint8 or packed.dim() != 1:
         raise TypeError("packed must be a 1-D uint8 tensor")
     if not packed.is_contiguous():
@@ -80,11 +102,13 @@ def canonical_windows(
     packed: torch.Tensor, L: int, k: int, canonical: bool = True,
     valid: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """(L - k + 1,) int32 window keys of the L codes in `packed`: the
-    canonical min(fwd, rc) (fwd alone if not `canonical`), with S_SENT
-    where `valid` (optional, one bool per window) is False.
+    """(L - k + 1,) window keys of the L codes in `packed`: the canonical
+    min(fwd, rc) (fwd alone if not `canonical`), with the sentinel where
+    `valid` (optional, one bool per window) is False.  int32 keys and
+    S_SENT for k <= SINGLE_MAX_K (kernel B1), int64 keys and SENTINEL
+    above (kernel B2).
 
-    A CUDA tensor runs kernel B1; a CPU tensor runs the plain version."""
+    A CUDA tensor runs the kernel; a CPU tensor runs the plain version."""
     n = _check(packed, L, k, valid)
     if packed.device.type == "cpu":
         return canonical_windows_plain(packed, L, k, canonical, valid)
@@ -93,15 +117,20 @@ def canonical_windows(
     from . import _build
 
     lib = _build.load()
-    out = torch.empty(n, dtype=torch.int32, device=packed.device)
+    single = k <= SINGLE_MAX_K
+    entry = lib.kmerset_pack_canonical if single else lib.kmerset_pack_canonical64
+    out = torch.empty(n, dtype=key_dtype(k), device=packed.device)
     with torch.cuda.device(packed.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.kmerset_pack_canonical(
+        err = entry(
             packed.data_ptr(), L, k, int(canonical),
             valid.data_ptr() if valid is not None else None,
             out.data_ptr(), n, stream,
         )
-    _build.check(lib, err, "pack kernel")
-    global launches
-    launches += 1
+    _build.check(lib, err, "pack kernel B1" if single else "pack kernel B2")
+    global launches, launches_pair
+    if single:
+        launches += 1
+    else:
+        launches_pair += 1
     return out

@@ -1,0 +1,81 @@
+"""Device unitig front-end: side tables -> terminal tests -> oriented
+successor.
+
+Counterpart of kmerset_tpu/ops/unitigs.py:_build's unitig_succ (:33-56)
+and device_unitig_succ (:150-186), whose host form is the front half of
+kmerset_tpu/core/spss.py:get_unitigs_canonical (:628-652).  Orientation
+convention of core/spss.py: node u = (entity << 1) | o, o = 0 exits the
+right side, o = 1 the left; mirror(u) = u ^ 1.  The chain walk and the
+string emission stay on the host (core/spss.py), which needs exactly
+these arrays.
+"""
+
+from __future__ import annotations
+
+import logging
+import time
+from typing import Tuple
+
+import numpy as np
+import torch
+
+from .. import resolve_device
+from . import backend
+from .neighbors import side_tables
+
+logger = logging.getLogger("kmerset")
+
+
+def unitig_succ(A: torch.Tensor, k: int) -> Tuple[torch.Tensor, ...]:
+    """(succ (2n,) int64 with -1 at terminal exits, term_l, term_r, both
+    (n,) bool) of the sorted unique canonical k-mers A on A's device."""
+    (rdeg, rnbr, rsame), (ldeg, lnbr, lsame) = side_tables(A, k, True)
+    # Terminal tests (reference: lib/core/spss.h:276-313): a side is
+    # terminal unless its unique mate's corresponding side also has a
+    # unique back-edge.
+    mate_r = torch.where(rsame, rdeg[rnbr], ldeg[rnbr])
+    term_r = (rdeg != 1) | (mate_r != 1)
+    mate_l = torch.where(lsame, ldeg[lnbr], rdeg[lnbr])
+    term_l = (ldeg != 1) | (mate_l != 1)
+    # After a same-side step the orientation flips (reference FindPath,
+    # lib/core/spss.h:394-423).
+    succ = torch.empty(2 * A.shape[0], dtype=torch.int64, device=A.device)
+    succ[0::2] = torch.where(term_r, -1, 2 * rnbr + rsame)
+    succ[1::2] = torch.where(term_l, -1, 2 * lnbr + (~lsame).to(torch.int64))
+    return succ, term_l, term_r, term_l & term_r
+
+
+def _sync(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def device_unitig_succ(
+    A: np.ndarray, k: int, *, device
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+    """unitig_succ of the host array A (sorted unique canonical int64
+    k-mers) on `device`, as host arrays: (succ int64, term_l, term_r,
+    both bool).  Logs the upload, device and download times at debug
+    level.  Sets above backend.MAX_DEVICE_GRAPH_KMERS raise."""
+    n = int(A.shape[0])
+    if n > backend.MAX_DEVICE_GRAPH_KMERS:
+        raise ValueError(
+            f"{n} k-mers exceed the one-shot device graph cap "
+            f"({backend.MAX_DEVICE_GRAPH_KMERS}); an out-of-core front-end "
+            "is ROADMAP A.6"
+        )
+    dev = resolve_device(device)
+    t0 = time.perf_counter()
+    At = torch.from_numpy(np.ascontiguousarray(A, dtype=np.int64)).to(dev)
+    _sync(dev)
+    t1 = time.perf_counter()
+    out = unitig_succ(At, k)
+    _sync(dev)
+    t2 = time.perf_counter()
+    succ, term_l, term_r, both = (x.cpu().numpy() for x in out)
+    t3 = time.perf_counter()
+    logger.debug(
+        "unitigs: device front-end upload %.4f s, device %.4f s, "
+        "download %.4f s (%d k-mers)", t1 - t0, t2 - t1, t3 - t2, n,
+    )
+    return succ, term_l, term_r, both

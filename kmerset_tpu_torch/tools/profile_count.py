@@ -1,16 +1,18 @@
 """Where the port's count phase spends its time on a CUDA device.
 
-    python -m kmerset_tpu_torch.tools.profile_count [--trace OUT.json] FASTA
+    python -m kmerset_tpu_torch.tools.profile_count [--k 15|19|23] \
+        [--trace OUT.json] FASTA
 
-It counts the FASTA's canonical 15-mers, the CLI's default.  In each of
-two repetitions (the first pays one-time costs) it prints one line per
-step:
+It counts the FASTA's canonical k-mers (k = 15 by default, the CLI's
+default).  In each of two repetitions (the first pays one-time costs) it
+prints one line per step:
 - the host steps that KmerCounter.from_fasta takes (wall ms): the native
   parse when the reference's host library is loaded, else its numpy
   fallback as read_lines, parse_fasta_lines and reads_to_codes;
 - the staging (2-bit pack and upload, wall ms);
 - each device step of ops/count.count_kmers_frag (CUDA-event ms, through
-  its `mark` hook);
+  its `mark` hook): the pack step is "B1 pack" at k = 15 and "B2 pack" at
+  k = 19 and 23;
 - device_count end to end (stage, device, fetch; wall ms).
 Then it records one device_count call with torch.profiler, writes the
 Chrome trace to --trace if given, and prints the device's busy time by
@@ -36,7 +38,6 @@ from ..core.kmer_counter import DEFAULT_VALUE_MAX
 from ..ops import _build, backend
 from ..ops import count as count_ops
 
-K = 15
 REPS = 2
 _BUSY = ("kernel", "gpu_memcpy", "gpu_memset")
 
@@ -110,6 +111,7 @@ def profile_once(codes, offsets, k: int, device, trace_path: str) -> None:
 
 def main(argv=None) -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--k", type=int, default=15, choices=(15, 19, 23))
     parser.add_argument(
         "--trace", default="",
         help="write the torch.profiler trace of one device_count call here",
@@ -129,18 +131,18 @@ def main(argv=None) -> None:
         codes, offsets = parse(args.fasta)
         staged = _wall(
             "stage (pack2 + upload)",
-            lambda: backend.stage(codes, offsets, K, device),
+            lambda: backend.stage(codes, offsets, args.k, device),
         )
-        device_steps(staged, K)
+        device_steps(staged, args.k)
         keys, _ = _wall(
             "device_count (stage, device, fetch)",
             lambda: backend.device_count(
-                codes, offsets, K, True, device=device,
+                codes, offsets, args.k, True, device=device,
                 value_max=DEFAULT_VALUE_MAX,
             ),
         )
         print(f"n_unique {keys.shape[0]}", flush=True)
-    profile_once(codes, offsets, K, device, args.trace)
+    profile_once(codes, offsets, args.k, device, args.trace)
 
 
 if __name__ == "__main__":

@@ -106,11 +106,33 @@ def test_trace_writes_torch_profile(fasta, tmp_path):
     assert (trace / "trace.json").stat().st_size > 0
 
 
-def test_k19_exits_naming_slice_2(fasta):
+@pytest.mark.parametrize("cutoff", [1, 2])
+@pytest.mark.parametrize("k", [19, 23])
+def test_pair_k_dump_byte_identical_to_reference(fasta, tmp_path, k, cutoff):
+    """k = 19 and 23 (kernel B2, the int64 keys) as k = 15 above."""
+    a, b = str(tmp_path / "a.txt"), str(tmp_path / "b.txt")
+    common = ["--k", str(k), "--cutoff", str(cutoff), "--check"]
     port = _run("kmerset_tpu_torch.cli.kmerset_build", "--device", "cpu",
-                "--k", "19", fasta)
-    assert port.returncode != 0
-    assert "slice 2" in port.stderr and "B2" in port.stderr
+                *common, "--out", a, fasta)
+    ref = _run("kmerset_tpu.cli.kmerset_build", *common, "--out", b, fasta)
+    assert port.returncode == 0, port.stderr
+    assert ref.returncode == 0, ref.stderr
+    with open(a, "rb") as fa, open(b, "rb") as fb:
+        assert fa.read() == fb.read()
+    assert _logged(port.stderr) == _logged(ref.stderr)
+    assert len(_logged(port.stderr)) == len(_LOGGED)
+    assert "kmer_set_compact -> KmerSet: ok" in port.stderr
+    if cutoff > 1:
+        assert _logged(port.stderr)["cutoff_count"] > 0
+
+
+@pytest.mark.parametrize("k", ["25", "31"])
+def test_k_above_23_exits_1(fasta, k):
+    """25 is no CLI k; 31 is one of the reference's, not ported."""
+    port = _run("kmerset_tpu_torch.cli.kmerset_build", "--device", "cpu",
+                "--k", k, fasta)
+    assert port.returncode == 1
+    assert k in port.stderr
 
 
 def test_cuda_without_a_card_exits_nonzero(fasta):

@@ -72,8 +72,30 @@ def test_compact_rejects_bad_inputs():
     with pytest.raises(ValueError):
         compact.compact_select([lane] * 4, keep)
     with pytest.raises(TypeError):
-        compact.compact_select([lane.long()], keep)
+        compact.compact_select([lane.to(torch.int16)], keep)
     with pytest.raises(TypeError):
         compact.compact_select([lane[:4]], keep)
     with pytest.raises(TypeError):
         compact.compact_select([lane], keep.int())
+
+
+@pytest.mark.parametrize("frac", [0.0, 0.5, 1.0])
+def test_compact_int64_lane_beside_int32(frac):
+    """The k = 19/23 count compacts [int64 key, int32 position]; each lane
+    keeps its dtype and equals lane[keep], full-width int64 values
+    included."""
+    n = 6007
+    rng = np.random.default_rng(int(frac * 10) + 40)
+    key = rng.integers(-(1 << 63), (1 << 63) - 1, n, dtype=np.int64)
+    key[:3] = [np.iinfo(np.int64).min, np.iinfo(np.int64).max, 1 << 62]
+    pos = np.arange(n, dtype=np.int32)
+    keep = rng.random(n) < frac
+    keep[:3] = frac > 0
+    got, n_sel = compact.compact_select(
+        [torch.from_numpy(key), torch.from_numpy(pos)], torch.from_numpy(keep)
+    )
+    assert int(n_sel) == int(keep.sum())
+    assert [g.dtype for g in got] == [torch.int64, torch.int32]
+    m = int(n_sel)
+    np.testing.assert_array_equal(got[0].numpy()[:m], key[keep])
+    np.testing.assert_array_equal(got[1].numpy()[:m], pos[keep])

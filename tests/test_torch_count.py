@@ -53,7 +53,7 @@ def _port_from_ref_staging(ref_staged):
     return torch.from_numpy(packed), torch.from_numpy(bounds), total, L
 
 
-@pytest.mark.parametrize("k", [9, 15])
+@pytest.mark.parametrize("k", [9, 15, 19, 23])
 def test_count_kmers_frag_matches_reference(k):
     ref_staged, port_staged = _inputs(k)
     uniq, counts, n_unique = R.count_kmers_frag(*ref_staged, k, True)
@@ -63,13 +63,14 @@ def test_count_kmers_frag_matches_reference(k):
     for staged in (port_staged, _port_from_ref_staging(ref_staged)):
         pu, pc, pn = P.count_kmers_frag(*staged, k, True)
         assert pn == n
-        assert pu.dtype == pc.dtype == torch.int32
+        assert pu.dtype == (torch.int32 if k <= 15 else torch.int64)
+        assert pc.dtype == torch.int32
         np.testing.assert_array_equal(pu.numpy(), want_u)
         np.testing.assert_array_equal(pc.numpy(), want_c)
 
 
 @pytest.mark.parametrize("cutoff", [1, 2, 3, 9])
-@pytest.mark.parametrize("k", [9, 15])
+@pytest.mark.parametrize("k", [9, 15, 19, 23])
 def test_count_to_set_frag_matches_reference(k, cutoff):
     ref_staged, port_staged = _inputs(k)
     uniq, n_kept, n_cut = R.count_to_set_frag(*ref_staged, k, True, cutoff)
@@ -153,7 +154,7 @@ def test_count_marks_each_step_and_counts_empty_input():
     assert n == keys.shape[0] == counts.shape[0] == 0
 
 
-@pytest.mark.parametrize("k", [9, 15])
+@pytest.mark.parametrize("k", [9, 15, 19, 23])
 def test_frag_window_validity_matches_reference(k):
     ref_staged, _ = _inputs(k)
     _, bounds, total, L = ref_staged
@@ -232,8 +233,46 @@ def test_device_unique_and_empty_inputs():
 
 def test_limits_raise(monkeypatch):
     codes, offsets = core_io.reads_to_codes(_reads(9))
-    with pytest.raises(ValueError, match="B2"):
-        backend.device_count(codes, offsets, 19, True, device="cpu")
+    with pytest.raises(ValueError, match="k <= 23"):
+        backend.device_count(codes, offsets, 25, True, device="cpu")
     monkeypatch.setattr(backend, "MAX_WINDOWS", 100)
     with pytest.raises(ValueError, match="A.6"):
         backend.device_count(codes, offsets, 9, True, device="cpu")
+
+
+@pytest.mark.parametrize("k", [19, 23])
+def test_pair_forward_keys_and_steps_match_reference(k):
+    """Forward (non-canonical) int64 keys and counts equal the reference's
+    pair layout, and the pack step is marked as kernel B2."""
+    ref_staged, port_staged = _inputs(k)
+    uniq, counts, n_unique = R.count_kmers_frag(*ref_staged, k, False)
+    steps = []
+    pu, pc, pn = P.count_kmers_frag(*port_staged, k, False, mark=steps.append)
+    n = int(n_unique)
+    assert pn == n
+    np.testing.assert_array_equal(pu.numpy(), np.asarray(uniq)[:n])
+    np.testing.assert_array_equal(pc.numpy(), np.asarray(counts)[:n])
+    assert steps == ["validity", "B2 pack", "sort", "run heads",
+                     "B3 compact", "counts"]
+
+
+@pytest.mark.parametrize("k", [19, 23])
+def test_pair_short_and_split_inputs_count_like_reference(k):
+    """An input shorter than k counts nothing; fragments split by N runs
+    count only the windows inside them, as the reference does."""
+    short = np.zeros(k - 1, np.uint8)
+    offs = np.array([0, k - 1], np.int64)
+    keys, counts = backend.device_count(short, offs, k, True, device="cpu")
+    assert keys.size == counts.size == 0
+    assert backend.device_unique(short, offs, k, True, device="cpu").size == 0
+    rng = np.random.default_rng(k)
+    codes = rng.integers(0, 4, 700, dtype=np.uint8)
+    offsets = np.array([0, 10, 10 + k, 300, 301, 700], np.int64)
+    uniq, counts, n_unique = R.count_kmers_frag(
+        *ref_backend._staged_windows_u8(codes, offsets, k), k, True
+    )
+    n = int(n_unique)
+    assert 0 < n <= np.maximum(np.diff(offsets) - k + 1, 0).sum()
+    got_k, got_c = backend.device_count(codes, offsets, k, True, device="cpu")
+    np.testing.assert_array_equal(got_k, np.asarray(uniq)[:n])
+    np.testing.assert_array_equal(got_c, np.asarray(counts)[:n])

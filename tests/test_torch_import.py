@@ -42,7 +42,7 @@ def test_port_imports_and_counts_without_jax():
         cwd=ROOT, env=env, timeout=300,
     )
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip()) >= 13  # every module of the slice
+    assert int(proc.stdout.strip()) >= 19  # every module of slices 1 and 2
 
 
 def test_no_jax_import_in_port_sources():
@@ -70,13 +70,16 @@ def test_wrappers_refuse_other_devices():
     back to the plain version."""
     from kmerset_tpu_torch.ops import compact, pack
 
-    packed = torch.zeros(4, dtype=torch.uint8, device="meta")
-    with pytest.raises(ValueError, match="unsupported device"):
-        pack.canonical_windows(packed, 16, 5)
+    packed = torch.zeros(10, dtype=torch.uint8, device="meta")
+    for k in (5, 19):  # kernels B1 and B2
+        with pytest.raises(ValueError, match="unsupported device"):
+            pack.canonical_windows(packed, 40, k)
     lane = torch.zeros(16, dtype=torch.int32, device="meta")
     keep = torch.zeros(16, dtype=torch.bool, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         compact.compact_select([lane], keep)
+    with pytest.raises(ValueError, match="unsupported device"):
+        compact.compact_select([lane.long(), lane], keep)
 
 
 def test_chip_smoke_imports_no_reference_module():
