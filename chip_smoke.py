@@ -14,8 +14,16 @@ genome, cutoff 1), run C (k = 23, the same genome, cutoff 1) and run D
 (k = 19, ~3x-coverage reads of a 2^22-base genome, cutoff 2).  Each dump
 must be byte-identical to the reference CLI's host build of the same input
 (those run as subprocesses beside the port's runs), and each run must go
-through its kernels and the device graph front-end.  Inputs are made from
-fixed seeds under build/chip_smoke/.
+through its kernels and the device graph front-end.  Then it checks the
+out-of-core paths (the chunked count and decode of runs A's and C's
+inputs, and the front-end in query chunks, each equal to its one-shot
+result, with the bytes per window behind the memory ceiling measured),
+the sketch table at 100 sets on the card against the CPU, and run M: the
+multi-set round trip (eight related strains built, jointly compressed,
+decompressed, `kmerset-stat` and `spss-benchmark`) through the port's
+CLIs on the card against the reference's host CLIs: byte-identical
+directories and DOT files, equal hashes, sizes, TSV and weights.  Inputs
+are made from fixed seeds under build/chip_smoke/.
 
 Each phase prints one line.  The line before the last is a JSON summary of
 the kernels; the last line is {"ok": true, "device": {...}}.  Any failure
@@ -25,7 +33,9 @@ non-zero, printing nothing to stdout, when no CUDA device is present.
 
 from __future__ import annotations
 
+import contextlib
 import filecmp
+import io
 import json
 import logging
 import os
@@ -42,6 +52,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 WORK = os.path.join(ROOT, "build", "chip_smoke")
 SEED = 20241016
 CLI_LOGGER = "kmerset"  # the logger kmerset-build writes its log lines to
+DEVICE = "cuda"  # of the out-of-core, sketch and run M phases
 
 
 def say(phase, msg: str) -> None:
@@ -311,38 +322,54 @@ def _phase_times(lines) -> dict:
     return out
 
 
-class RefRun:
-    """The reference CLI's host build of one input, in a subprocess that
-    runs beside the port's runs."""
+class RefCli:
+    """One reference CLI (`python -m kmerset_tpu.cli.<cli> ARGS`) pinned
+    to its host path, in a subprocess that runs beside the port's runs."""
 
-    def __init__(self, tag: str, fasta: str, k: int, cutoff: int):
-        self.out = os.path.join(WORK, f"{tag}_ref.txt")
+    def __init__(self, tag: str, cli: str, args):
+        self.out_log = open(os.path.join(WORK, f"{tag}_ref.out"), "w+")
         self.err = open(os.path.join(WORK, f"{tag}_ref.log"), "w+")
         env = dict(os.environ, KMERSET_TPU_FORCE_BACKEND="host",
                    JAX_PLATFORMS="cpu")
         self.t0 = time.perf_counter()
         self.proc = subprocess.Popen(
-            [sys.executable, "-m", "kmerset_tpu.cli.kmerset_build", "--k",
-             str(k), "--cutoff", str(cutoff), "--check", "--out", self.out,
-             fasta],
-            stdout=subprocess.DEVNULL, stderr=self.err, env=env, cwd=ROOT,
+            [sys.executable, "-m", f"kmerset_tpu.cli.{cli}", *args],
+            stdout=self.out_log, stderr=self.err, env=env, cwd=ROOT,
         )
+
+    def wait_output(self, timeout: float) -> Tuple[str, str, float]:
+        """(stdout, stderr, wall s) once it exits; raises if it failed."""
+        rc = self.proc.wait(timeout=timeout)
+        secs = time.perf_counter() - self.t0
+        out = []
+        for f in (self.out_log, self.err):
+            f.seek(0)
+            out.append(f.read())
+            f.close()
+        if rc != 0:
+            raise RuntimeError(f"reference CLI failed:\n{out[1][-4000:]}")
+        return out[0], out[1], secs
 
     def wait(self, timeout: float) -> Tuple[str, float]:
         """(stderr, wall s) once it exits; raises if it failed."""
-        rc = self.proc.wait(timeout=timeout)
-        secs = time.perf_counter() - self.t0
-        self.err.seek(0)
-        stderr = self.err.read()
-        self.err.close()
-        if rc != 0:
-            raise RuntimeError(f"reference CLI failed:\n{stderr[-4000:]}")
+        _, stderr, secs = self.wait_output(timeout)
         return stderr, secs
 
     def kill(self) -> None:
         if self.proc.poll() is None:
             self.proc.kill()
             self.proc.wait()
+
+
+class RefRun(RefCli):
+    """The reference CLI's host build of one input."""
+
+    def __init__(self, tag: str, fasta: str, k: int, cutoff: int):
+        self.out = os.path.join(WORK, f"{tag}_ref.txt")
+        super().__init__(tag, "kmerset_build", [
+            "--k", str(k), "--cutoff", str(cutoff), "--check", "--out",
+            self.out, fasta,
+        ])
 
 
 def main_path_run(torch, tag: str, fasta: str, k: int, cutoff: int,
@@ -412,7 +439,298 @@ def main_path_run(torch, tag: str, fasta: str, k: int, cutoff: int,
              f"{spss['front-end download']:.4f}]; host walk + emission + "
              f"path cover {host:.2f} [" + ", ".join(
                  f"{p} {spss[p]:.2f}" for p in _PHASES[1:]) + "]")
-    return {"launches": launches, **times}
+    return {"launches": launches, "size": mine["kmer_set.Size()"], **times}
+
+
+_LUT = np.full(256, 255, dtype=np.uint8)
+_LUT[np.frombuffer(b"ACGT", dtype=np.uint8)] = np.arange(4, dtype=np.uint8)
+
+
+def fasta_codes(path: str) -> Tuple[np.ndarray, np.ndarray]:
+    """(codes uint8, fragment offsets int64) of this script's own FASTA
+    files and dumps: every sequence line is split at each base other than
+    ACGT, as the FASTA parser does (one sequence line per record here)."""
+    with open(path, "rb") as f:
+        lines = [l for l in f.read().split(b"\n") if l and l[:1] != b">"]
+    arr = _LUT[np.frombuffer(b"N".join(lines), dtype=np.uint8)]
+    valid = arr != 255
+    cum = np.cumsum(valid)
+    offsets = np.unique(np.concatenate(
+        [[0], cum[np.flatnonzero(~valid)], [cum[-1]]]
+    )).astype(np.int64)
+    return arr[valid], offsets
+
+
+def _peak_bytes(torch, fn):
+    """(fn(), peak bytes allocated above what was allocated before it)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, torch.cuda.max_memory_allocated() - base
+
+
+def _timed(torch, fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def check_out_of_core(torch, fasta_a: str, dump_c: str, sizes: dict) -> None:
+    """The chunked count (run A's genome at k = 15 and 23) and decode (run
+    C's dump) at a forced 2^22-window chunk, and the front-end on run C's
+    set at query_chunk = 2^22, each equal to its one-shot result; the
+    peak bytes per window and per queried k-mer held against the
+    constants that size the memory ceiling."""
+    from kmerset_tpu_torch.ops import backend, neighbors, unitigs
+
+    chunk = 1 << 22
+    codes, offsets = fasta_codes(fasta_a)
+    for k, tag in ((15, "run A"), (23, "run C")):
+        n_windows = codes.size - k + 1
+        one, peak = _peak_bytes(torch, lambda: backend.device_count(
+            codes, offsets, k, True, device=DEVICE))
+        _, one_s = _timed(torch, lambda: backend.device_count(
+            codes, offsets, k, True, device=DEVICE))
+        got, ch_s = _timed(torch, lambda: backend.device_count_chunked(
+            codes, offsets, k, True, device=DEVICE, chunk_windows=chunk))
+        for g, w, name in zip(got, one, ("keys", "counts")):
+            if not np.array_equal(g, w):
+                raise AssertionError(f"chunked count k={k}: {name} differ")
+        if one[0].size != sizes[k]:
+            raise AssertionError(f"k={k}: {one[0].size} k-mers, {tag} "
+                                 f"logged {sizes[k]}")
+        per = peak / n_windows
+        say(9, f"count k={k}, {n_windows} windows: chunked "
+               f"({-(-n_windows // chunk)} chunks of 2^22) equal to one-shot "
+               f"({one[0].size} keys = {tag}'s size); one-shot {one_s:.4f} s, "
+               f"chunked {ch_s:.4f} s; peak {per:.2f} B/window "
+               f"(ceiling uses {backend.count_bytes_per_window(k)})")
+        if per > backend.count_bytes_per_window(k):
+            raise AssertionError(f"k={k}: {per:.2f} B/window above the "
+                                 "ceiling's constant")
+    k = 23
+    codes, offsets = fasta_codes(dump_c)
+    one, one_s = _timed(torch, lambda: backend.device_unique(
+        codes, offsets, k, True, device=DEVICE))
+    got, ch_s = _timed(torch, lambda: backend.device_unique_chunked(
+        codes, offsets, k, True, device=DEVICE, chunk_windows=chunk))
+    n_windows = codes.size - k + 1
+    if not np.array_equal(got, one) or one.size != sizes[k]:
+        raise AssertionError("chunked decode of run C's dump differs")
+    say(9, f"decode k={k}, run C's dump, {n_windows} windows: chunked "
+           f"({-(-n_windows // chunk)} chunks) equal to one-shot ({one.size} "
+           f"k-mers); one-shot {one_s:.4f} s, chunked {ch_s:.4f} s")
+    A = one
+    whole, one_s = _timed(torch, lambda: unitigs.device_unitig_succ(
+        A, k, device=DEVICE, query_chunk=A.size))
+    got, ch_s = _timed(torch, lambda: unitigs.device_unitig_succ(
+        A, k, device=DEVICE, query_chunk=chunk))
+    for name, g, w in zip(("succ", "term_l", "term_r", "both"), got, whole):
+        if g.dtype != w.dtype or not np.array_equal(g, w):
+            raise AssertionError(f"front-end in query chunks: {name} differs")
+    At = torch.from_numpy(A).to(DEVICE)
+    _, peak = _peak_bytes(torch, lambda: neighbors.side_tables(
+        At, k, True, 0, chunk))
+    del At
+    per = peak / chunk
+    say(9, f"front-end k={k}, {A.size} k-mers: query_chunk 2^22 "
+           f"({-(-A.size // chunk)} chunks) bit for bit equal to one shot; "
+           f"one shot {one_s:.4f} s, chunked {ch_s:.4f} s (upload and "
+           f"download included); side-table chunk peak {per:.2f} B/k-mer "
+           f"(ceiling uses {backend.FRONT_END_BYTES_PER_QUERY})")
+    if per > backend.FRONT_END_BYTES_PER_QUERY:
+        raise AssertionError(f"front-end: {per:.2f} B/k-mer above the "
+                             "ceiling's constant")
+    free, total = torch.cuda.mem_get_info()
+    budget = backend.memory_budget(DEVICE)
+    say(9, f"ceiling: mem_get_info free {free} of {total} B, budget "
+           f"{budget} B: one shot up to {backend.window_ceiling(15, budget)} "
+           f"windows at int32 keys (k <= 15), "
+           f"{backend.window_ceiling(23, budget)} at int64 keys; front-end "
+           f"query chunks of {backend.query_chunk_kmers(budget)} k-mers.  "
+           "An input above the ceiling (~1.5 Gbases) is not run here: its "
+           "host parse on the numpy fallbacks would take minutes")
+
+
+def check_sketch(torch, rng) -> None:
+    """All 4,950 pair weights of 100 sketches of ~85K keys (2% of a
+    ~4.2M-k-mer set, the README's 100-set scale) on cuda, equal to the
+    same table on the CPU and, for 64 pairs, to a numpy intersection."""
+    from kmerset_tpu_torch.ops.sketch import DeviceSketchTable
+
+    pool = np.unique(rng.integers(0, 1 << 30, 170_000))
+    sketches = []
+    for _ in range(100):
+        keep = pool[rng.random(pool.size) < rng.uniform(0.3, 0.6)]
+        own = rng.integers(0, 1 << 30, int(rng.integers(0, 20_000)))
+        sketches.append(np.unique(np.concatenate([keep, own])))
+    pairs = [(i, j) for i in range(100) for j in range(i + 1, 100)]
+    table = DeviceSketchTable(sketches, device=DEVICE)
+    if table.rows.device.type != torch.device(DEVICE).type:
+        raise AssertionError("the sketch table is not on the card")
+    table.pair_weights(pairs[:100])  # warm-up
+    got, secs = _timed(torch, lambda: table.pair_weights(pairs))
+    t0 = time.perf_counter()
+    want = DeviceSketchTable(sketches, device="cpu").pair_weights(pairs)
+    cpu_s = time.perf_counter() - t0
+    if not np.array_equal(got, want):
+        raise AssertionError("sketch weights differ between cuda and cpu")
+    for p in rng.choice(len(pairs), 64, replace=False):
+        i, j = pairs[p]
+        if got[p] != np.intersect1d(sketches[i], sketches[j],
+                                    assume_unique=True).size:
+            raise AssertionError(f"sketch weight of {pairs[p]} is wrong")
+    mean = float(np.mean([s.size for s in sketches]))
+    say(10, f"sketch table: 100 rows of {mean:.0f} keys on average "
+            f"(widest {table.S}), {len(pairs)} pair weights on cuda in "
+            f"{secs:.4f} s ({table.batch_pairs()} pairs per batch), equal to "
+            f"the CPU table ({cpu_s:.3f} s there) and, for 64 pairs, to "
+            "numpy's intersect1d")
+
+
+M_SETS = 8
+M_BASES = 1 << 21  # bench.py:214's size; 2^22 made the script run past 600 s
+
+
+def _capture_run(cli, argv):
+    """Runs a port CLI's main(argv) in this process: (stdout, log lines
+    with their times, wall s)."""
+    cap = _Capture()
+    log = logging.getLogger(CLI_LOGGER)
+    log.addHandler(cap)
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(out):
+            cli.main(argv)
+    finally:
+        log.removeHandler(cap)
+    return out.getvalue(), cap.records, time.perf_counter() - t0
+
+
+_HASH_SIZE = re.compile(r"kmer_set\.(Hash|Size)\(\) = (\d+)")
+_DEFERRED = re.compile(r"deferred SPSS build ([\d.]+) s")
+_ORACLE = re.compile(r"sketch table on (\S+) ([\d.]+) s \((\d+) pair")
+
+
+def run_m(torch, rng) -> dict:
+    """Eight related strains built, then compressed, decompressed, stat'd
+    and spss-benchmarked through the port's CLIs on the card, each against
+    the reference's CLI on the host."""
+    from kmerset_tpu_torch.cli import (kmerset_build, kmerset_multiple_compress,
+                                       kmerset_multiple_decompress,
+                                       kmerset_stat, spss_benchmark)
+    from kmerset_tpu_torch.ops import compact, pack
+
+    tag = "11 run M"
+    base = rng.integers(0, 4, M_BASES, dtype=np.uint8)
+    fastas, sets = [], []
+    for i in range(M_SETS):
+        mut = base.copy()
+        pos = rng.integers(0, M_BASES, M_BASES // 500)
+        mut[pos] = rng.integers(0, 4, pos.size, dtype=np.uint8)
+        fastas.append(os.path.join(WORK, f"m{i}.fa"))
+        sets.append(os.path.join(WORK, f"m{i}.txt"))
+        with open(fastas[-1], "wb") as f:
+            for j in range(0, M_BASES, 10_000):
+                f.write(b">m%d_%d\n" % (i, j) + _BASES[mut[j:j + 10_000]].tobytes()
+                        + b"\n")
+    port_dir, ref_dir = (os.path.join(WORK, d) for d in ("M_port", "M_ref"))
+    pack.launches = pack.launches_pair = compact.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for fa, out in zip(fastas, sets):
+        kmerset_build.main(["--device", DEVICE, "--k", "15", "--cutoff", "1",
+                            "--out", out, fa])
+    build_s = time.perf_counter() - t0
+    refs = {
+        "compress": RefCli("m_compress", "kmerset_multiple_compress", [
+            "--k", "15", "--seed", "1", "--out", ref_dir, "--out_graph",
+            ref_dir + ".dot", *sets]),
+        "stat": RefCli("m_stat", "kmerset_stat", ["--k", "15", *sets]),
+        "bench": RefCli("m_bench", "spss_benchmark", ["--k", "15", sets[0]]),
+    }
+    try:
+        _, comp_log, comp_s = _capture_run(kmerset_multiple_compress, [
+            "--device", DEVICE, "--k", "15", "--seed", "1", "--workers", "4",
+            "--out", port_dir, "--out_graph", port_dir + ".dot", *sets])
+        _, dec_log, dec_s = _capture_run(kmerset_multiple_decompress, [
+            "--device", DEVICE, "--k", "15", port_dir])
+        stat_out, _, stat_s = _capture_run(kmerset_stat, [
+            "--device", DEVICE, "--k", "15", *sets])
+        bench_out, _, bench_s = _capture_run(spss_benchmark, [
+            "--device", DEVICE, "--k", "15", sets[0]])
+        launches = {"B1": pack.launches, "B2": pack.launches_pair,
+                    "B3": compact.launches}
+        peak_gib = torch.cuda.max_memory_allocated() / (1 << 30)
+        _, _, ref_comp_s = refs["compress"].wait_output(900)
+        refs["decompress"] = RefCli("m_decompress",
+                                    "kmerset_multiple_decompress",
+                                    ["--k", "15", ref_dir])
+        ref_stat, _, _ = refs["stat"].wait_output(900)
+        ref_bench, ref_bench_err, _ = refs["bench"].wait_output(900)
+        _, ref_dec_err, ref_dec_s = refs["decompress"].wait_output(900)
+    finally:
+        for ref in refs.values():
+            ref.kill()
+
+    names = sorted(os.listdir(port_dir))
+    if names != sorted(os.listdir(ref_dir)) or "meta.txt" not in names:
+        raise AssertionError(f"run M: directories hold other files: {names}")
+    match, mismatch, errors = filecmp.cmpfiles(port_dir, ref_dir, names,
+                                               shallow=False)
+    if mismatch or errors or not filecmp.cmp(port_dir + ".dot",
+                                             ref_dir + ".dot", shallow=False):
+        raise AssertionError(f"run M: files differ: {mismatch + errors} "
+                             "(or the DOT files)")
+    dec = [m.groups() for m in map(_HASH_SIZE.search,
+                                   (msg for _, msg in dec_log)) if m]
+    if dec != _HASH_SIZE.findall(ref_dec_err):
+        raise AssertionError("run M: decompressed Hash()/Size() differ")
+    if stat_out != ref_stat:
+        raise AssertionError("run M: kmerset-stat TSV differs")
+    for i, row in enumerate(stat_out.splitlines()):
+        _, _, size, hash_ = row.split("\t")
+        if dec[2 * i : 2 * i + 2] != [("Hash", hash_), ("Size", size)]:
+            raise AssertionError(f"run M: set {i} decompressed to another set")
+    p, r = bench_out.split(), ref_bench.split()
+    if len(p) != 8 or [p[i] for i in (1, 3, 5, 7)] != [r[i] for i in (1, 3, 5, 7)] \
+            or p[3] != "1" or p[7] != "1":
+        raise AssertionError(f"run M: spss-benchmark {p} against {r}")
+    for name in ("B1", "B3"):
+        if launches[name] <= 0:
+            raise AssertionError(f"run M: kernel {name} was not launched")
+    msgs = [m for _, m in comp_log]
+    builds = [float(m.group(1)) for m in map(_DEFERRED.search, msgs) if m]
+    oracle = [m.groups() for m in map(_ORACLE.search, msgs) if m]
+    if not builds or len(oracle) != 1 or not oracle[0][0].startswith(DEVICE):
+        raise AssertionError(f"run M: deferred builds {builds}, oracle {oracle}")
+    sizes = [int(l.split("\t")[2]) for l in stat_out.splitlines()]
+    w_in = sum(os.path.getsize(f) for f in sets)
+    w_out = sum(os.path.getsize(os.path.join(port_dir, n)) for n in names
+                if n != "meta.txt")
+    say(tag, f"{M_SETS} strains of a {M_BASES}-base genome "
+             f"({M_BASES // 500} substitutions each), {min(sizes)}-"
+             f"{max(sizes)} k-mers: directory ({len(names)} files) and DOT "
+             f"byte-identical to the reference CLI's; decompressed "
+             f"Hash()/Size() equal to the reference's and to kmerset-stat "
+             f"(TSV equal); spss-benchmark weights {p[1]} / {p[5]} and ok "
+             f"equal; launches {launches}; sketch table on {oracle[0][0]}; "
+             f"peak device memory {peak_gib:.3f} GiB")
+    say(tag, f"wall s: 8 builds {build_s:.3f}, compress {comp_s:.3f} "
+             f"({len(builds)} deferred SPSS builds, {sum(builds):.3f} s in "
+             f"all; sketch table {float(oracle[0][1]):.4f} s for "
+             f"{oracle[0][2]} pair weights), decompress {dec_s:.3f}, stat "
+             f"{stat_s:.3f}, spss-benchmark {bench_s:.3f}; reference host "
+             f"compress {ref_comp_s:.3f}, decompress {ref_dec_s:.3f} "
+             "(subprocesses beside the port's runs)")
+    say(tag, f"weight in -> out: {w_in} -> {w_out} bytes of dumps "
+             f"(ratio {w_out / w_in:.4f})")
+    return {"launches": launches}
 
 
 def main() -> int:
@@ -471,6 +789,11 @@ def main() -> int:
         for ref in refs:
             ref.kill()
 
+    check_out_of_core(torch, fasta_a, os.path.join(WORK, f"{plan[1][0]}_port.txt"),
+                      {15: runs[0]["size"], 23: runs[1]["size"]})
+    check_sketch(torch, rng)
+    runs.append(run_m(torch, rng))
+
     for kern in kernels:
         name = kern["name"].split()[0]
         kern["launches"] = sum(run["launches"][name] for run in runs)
@@ -478,7 +801,7 @@ def main() -> int:
             raise AssertionError(f"kernel {name} was not launched by the runs")
     if "jax" in sys.modules:
         raise AssertionError("jax was imported during the port's run")
-    say(8, "launch counts over runs A, C and D: " + ", ".join(
+    say(8, "launch counts over runs A, C, D and M: " + ", ".join(
         f"{k['name'].split()[0]} {k['launches']}" for k in kernels)
         + f"; jax not in sys.modules; {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)

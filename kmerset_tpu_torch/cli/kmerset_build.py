@@ -22,10 +22,8 @@ from kmerset_tpu.core import io as core_io
 from kmerset_tpu.core.config import get_config
 from kmerset_tpu.utils.log import enable_debug_logs, init_default_logger
 
-from .. import resolve_device
 from ..core.kmer_counter import KmerCounter
 from ..core.kmer_set_compact import KmerSetCompact
-from ..ops.pack import MAX_K
 from ..utils import flags as flag_util
 
 
@@ -56,11 +54,7 @@ def main(argv=None) -> None:
         "does compression & decompression to see if it is working correctly",
     )
     parser.add_argument("--out", default="", help="output file name")
-    parser.add_argument(
-        "--device",
-        default="cuda",
-        help="torch device for counting and decoding: cuda (default) or cpu",
-    )
+    flag_util.add_device_flag(parser)
     parser.add_argument("file", help="path to FASTA file")
     args = flag_util.parse_args(parser, argv)
 
@@ -68,15 +62,7 @@ def main(argv=None) -> None:
     if args.debug:
         enable_debug_logs()
     flag_util.check_k(args.k)
-    if args.k > MAX_K:
-        print(f"k={args.k} is not ported: this package counts k <= {MAX_K}",
-              file=sys.stderr)
-        raise SystemExit(1)
-    try:
-        device = resolve_device(args.device)
-    except (RuntimeError, ValueError) as e:
-        logger.error("%s", e)
-        sys.exit(1)
+    device = flag_util.device_or_exit(args, logger)
     flag_util.apply_workers(args)
     cfg = get_config(args.k)
 

@@ -1,0 +1,116 @@
+"""kmerset-multiple-compress on a torch device: jointly compresses N
+compact set files into a directory.
+
+Same flags (--seed, --workers, --out, --out_graph, --extension, ...) and
+log lines as kmerset_tpu/cli/kmerset_multiple_compress.py, plus --device
+(default cuda; a missing CUDA device is an error, never a quiet CPU run).
+Decoding and sampling the inputs, the pair weights and every deferred
+SPSS build's graph front-end run on the device; the set algebra, the
+chain walk, the path cover and the dumps are the reference's host code.
+The directory and the DOT file are byte-identical to the reference's for
+the same inputs and seed.  There is no multi-process bring-up
+(multi-GPU is ROADMAP A.8).
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import sys
+from concurrent.futures import ThreadPoolExecutor
+
+from kmerset_tpu.core.config import get_config
+from kmerset_tpu.utils.log import enable_debug_logs, init_default_logger
+
+from ..core.kmer_set_compact import KmerSetCompact
+from ..core.kmer_set_set import KmerSetSet
+from ..utils import flags as flag_util
+
+
+def main(argv=None) -> None:
+    # See cli/kmerset_build.py: pins the reused host code to its host arms.
+    os.environ["KMERSET_TPU_FORCE_BACKEND"] = "host"
+
+    parser = argparse.ArgumentParser(
+        description=(
+            "Compresses multiple k-mer sets. Usage: kmerset-multiple-compress "
+            "[options] <paths to file> <path to file> ..."
+        )
+    )
+    flag_util.add_common_flags(parser, compressor=True)
+    parser.add_argument(
+        "--out", default="", help="directory path to save dumped files"
+    )
+    parser.add_argument(
+        "--extension", default="txt", help="extension for output files"
+    )
+    parser.add_argument(
+        "--out_graph", default="", help="path to save dumped DOT file"
+    )
+    parser.add_argument(
+        "--seed", type=int, default=0,
+        help="seed for similarity-sketch bucket sampling (the reference "
+        "samples nondeterministically; this build is reproducible)",
+    )
+    flag_util.add_device_flag(parser)
+    parser.add_argument("files", nargs="+", help="paths to compact set files")
+    args = flag_util.parse_args(parser, argv)
+
+    logger = init_default_logger()
+    if args.debug:
+        enable_debug_logs()
+    flag_util.check_k(args.k)
+    device = flag_util.device_or_exit(args, logger)
+    flag_util.apply_workers(args)
+    cfg = get_config(args.k)
+
+    def _load(item):
+        i, file = item
+        logger.info("reading: i = %d, file = %s", i, file)
+        c = KmerSetCompact.load(cfg.k, file, args.decompressor, device=device)
+        logger.info("finished reading: i = %d, file = %s", i, file)
+        return c
+
+    try:
+        with ThreadPoolExecutor(max_workers=max(1, args.workers)) as ex:
+            compacts = list(ex.map(_load, enumerate(args.files)))
+    except Exception as e:  # noqa: BLE001
+        logger.error("failed to read file: %s", e)
+        sys.exit(1)
+
+    total_size = 0
+    for i, c in enumerate(compacts):
+        size = c.size()
+        logger.info("i = %d, size = %d", i, size)
+        total_size += size
+    logger.info("total_size = %d", total_size)
+
+    logger.info("constructing kmer_set_set")
+    with flag_util.trace_context(args, device):
+        kss = KmerSetSet(
+            compacts, args.canonical, cfg, seed=args.seed,
+            workers=max(1, args.workers), device=device,
+        )
+    logger.info("constructed kmer_set_set")
+
+    if args.out_graph:
+        logger.info("dumping graph")
+        try:
+            kss.dump_graph(args.out_graph)
+        except Exception as e:  # noqa: BLE001
+            logger.error("failed to dump graph: %s", e)
+        logger.info("dumped graph")
+
+    if args.out:
+        try:
+            kss.dump(
+                args.out, args.compressor, args.extension,
+                workers=args.workers,
+            )
+        except Exception as e:  # noqa: BLE001
+            logger.error("failed to dump kmer_set_set: %s", e)
+            sys.exit(1)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,9 +1,11 @@
 """KmerCounter on an explicit torch device.
 
 Subclass of kmerset_tpu.core.kmer_counter.KmerCounter.  Its construction
-editions send every non-empty input to the port's device count
-(ops/backend.device_count) on the counter's device, with no size
-threshold, mesh, chunking or host fallback.  Everything after counting
+editions send every non-empty input to the port's device count on the
+counter's device: in one shot (ops/backend.device_count) up to the
+device's one-shot ceiling (backend.window_ceiling), in halo chunks merged
+on the host (backend.device_count_chunked) above it.  There is no size
+threshold, mesh or host fallback.  Everything after counting
 (saturating counts, the cutoff filter of to_kmer_set, queries) is the
 reference's own code.
 """
@@ -78,11 +80,19 @@ class KmerCounter(ref.KmerCounter):
         value_max: int = DEFAULT_VALUE_MAX, *, device,
     ) -> "KmerCounter":
         device = resolve_device(device)
-        if codes.shape[0] - k + 1 <= 0:
+        n_windows = codes.shape[0] - k + 1
+        if n_windows <= 0:
             return cls(k, None, None, value_max, device=device)
-        uniq, counts = backend.device_count(
-            codes, offsets, k, canonical, device=device, value_max=value_max
-        )
+        if n_windows > backend.window_ceiling(k, backend.memory_budget(device)):
+            # Raw merged counts; saturated below, after the merge.
+            uniq, counts = backend.device_count_chunked(
+                codes, offsets, k, canonical, device=device
+            )
+        else:
+            uniq, counts = backend.device_count(
+                codes, offsets, k, canonical, device=device,
+                value_max=value_max,
+            )
         return cls(
             k, uniq, np.minimum(counts, value_max), value_max, device=device
         )

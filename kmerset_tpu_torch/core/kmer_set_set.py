@@ -1,0 +1,325 @@
+"""KmerSetSet and KmerSetSetReader on an explicit torch device.
+
+Subclasses of kmerset_tpu.core.kmer_set_set's two classes.  Every set
+they hold or load is the port's KmerSetCompact on their device, so each
+decode runs the device count pipeline (kernels B1/B2 and B3) and each
+deferred SPSS build runs the device graph front-end.  The pair weights
+of the greedy loop come from the port's DeviceSketchTable on the same
+device, always: the reference's oracle choice (_make_weight_oracle,
+:145-177) with its mesh and size gates and its quiet host fallback is
+not carried over.  The set algebra (native sorted merges, or numpy), the
+heap, the stopping rule, the adjacency-list format and the DOT and
+directory dumps are the reference's.
+
+_compress (:247-380) hard-wires the reference's compact class and oracle,
+so it is repeated here line for line with the reference's helpers;
+load (:435-460) and the Reader's loads (:504-565) likewise.
+"""
+
+from __future__ import annotations
+
+import heapq
+import logging
+import os
+import time
+from typing import Dict, List, Tuple
+
+import numpy as np
+
+from kmerset_tpu.core import io as core_io
+from kmerset_tpu.core import kmer_set_set as ref
+from kmerset_tpu.core import native
+from kmerset_tpu.core.arrays import sorted_unique
+from kmerset_tpu.core.config import KConfig
+from kmerset_tpu.core.kmer_set import KmerSet
+from kmerset_tpu.core.kmer_set_set import (
+    AdjacencyList,
+    _parallel_map,
+    _pop_best_pair,
+    deserialize_adjacency_list,
+    reachable_ids,
+)
+from kmerset_tpu.utils.random import get_random_ints
+
+from .. import resolve_device
+from ..ops.sketch import DeviceSketchTable
+from .kmer_set_compact import KmerSetCompact
+
+logger = logging.getLogger("kmerset")
+
+
+def _check_compacts(sets: List[KmerSetCompact]) -> None:
+    for s in sets:
+        if not isinstance(s, KmerSetCompact):
+            raise TypeError(
+                "KmerSetSet takes the port's KmerSetCompact (a reference "
+                f"compact would decode and build on the host): {type(s)}"
+            )
+
+
+class KmerSetSet(ref.KmerSetSet):
+    def __init__(
+        self,
+        kmer_sets_compact: List[KmerSetCompact],
+        canonical: bool,
+        config: KConfig,
+        seed: int = 0,
+        workers: int = 1,
+        _children: AdjacencyList | None = None,
+        *,
+        device,
+    ):
+        """As the reference's (workers > 1 runs the stopping rule's
+        deferred SPSS builds in a thread pool); the greedy loop's pair
+        weights and the new sets' builds run on `device`."""
+        self.device = resolve_device(device)
+        _check_compacts(kmer_sets_compact)
+        super().__init__(
+            kmer_sets_compact, canonical, config, seed, workers, _children
+        )
+
+    def _compress(self, canonical: bool, seed: int, workers: int = 1) -> None:
+        cfg = self.config
+        sets = self.kmer_sets_compact_
+        n_inputs = len(sets)
+        if n_inputs == 0:
+            return
+
+        # ~2% of buckets sampled (reference: kmer_set_set.h:120-128).
+        n_sample = max(1, cfg.n_buckets // 50)
+        rng = np.random.default_rng(seed)
+        bucket_ids = get_random_ints(
+            n_sample, True, True, 0, cfg.n_buckets - 1, rng
+        )
+
+        sampled: List[np.ndarray] = [
+            s.sampled_kmers(cfg, bucket_ids, canonical) for s in sets
+        ]
+        for s in sets:
+            s.pack_in_memory()
+        t0 = time.perf_counter()
+        oracle = DeviceSketchTable(sampled, device=self.device)
+        oracle_s = time.perf_counter() - t0
+        n_weighed = 0
+
+        def weigh(pairs: List[Tuple[int, int]]) -> list:
+            nonlocal oracle_s, n_weighed
+            t0 = time.perf_counter()
+            w = oracle.pair_weights(pairs).tolist()
+            oracle_s += time.perf_counter() - t0
+            n_weighed += len(pairs)
+            return w
+
+        all_pairs = [
+            (i, j) for i in range(n_inputs) for j in range(i + 1, n_inputs)
+        ]
+        weights: Dict[Tuple[int, int], int] = dict(
+            zip(all_pairs, weigh(all_pairs))
+        )
+        heap = [(-w, p) for p, w in weights.items()]
+        heapq.heapify(heap)
+
+        # Stopping rule (reference: kmer_set_set.h:240-302).
+        def total_spss_weight() -> int:
+            _parallel_map(
+                lambda s: s.spss,
+                [s for s in sets if s._pending is not None],
+                workers,
+            )
+            w = sum(s.weight() for s in sets)
+            for s in sets:
+                s.pack_in_memory()
+            return w
+
+        total_weight = total_spss_weight()
+        interval = n_inputs // 8 + 1
+        improvement_threshold = 0.1 * interval / n_inputs
+
+        it = 0
+        while True:
+            if it > 0 and it % interval == 0:
+                updated = total_spss_weight()
+                improvement = (total_weight - updated) / total_weight
+                if improvement <= improvement_threshold:
+                    break
+                total_weight = updated
+            it += 1
+
+            best_pair = _pop_best_pair(heap, weights)
+            if best_pair is None:
+                break
+            j, k = best_pair
+
+            n = len(sets)
+            kj = sets[j].kmers(canonical)
+            kk = sets[k].kmers(canonical)
+            res = native.sorted_algebra(kj, kk)
+            if res is not None:
+                inter, kj2, kk2 = res
+            else:
+                inter = np.intersect1d(kj, kk, assume_unique=True)
+                kj2 = np.setdiff1d(kj, inter, assume_unique=True)
+                kk2 = np.setdiff1d(kk, inter, assume_unique=True)
+
+            # Lazy: the SPSS build waits until the strings are used.
+            sets.append(
+                KmerSetCompact.from_kmer_set(
+                    KmerSet(cfg.k, inter, _sorted=True), canonical,
+                    lazy=True, device=self.device,
+                )
+            )
+            sets[j] = KmerSetCompact.from_kmer_set(
+                KmerSet(cfg.k, kj2, _sorted=True), canonical, lazy=True,
+                device=self.device,
+            )
+            sets[k] = KmerSetCompact.from_kmer_set(
+                KmerSet(cfg.k, kk2, _sorted=True), canonical, lazy=True,
+                device=self.device,
+            )
+            oracle.append_row(sets[n].sampled_kmers(cfg, bucket_ids, canonical))
+            oracle.set_row(j, sets[j].sampled_kmers(cfg, bucket_ids, canonical))
+            oracle.set_row(k, sets[k].sampled_kmers(cfg, bucket_ids, canonical))
+            self.children_.setdefault(j, []).append(n)
+            self.children_.setdefault(k, []).append(n)
+
+            # Update weights of pairs touching j, k, n
+            # (reference: kmer_set_set.h:382-425).
+            touched: List[Tuple[int, int]] = []
+            for l in range(n):
+                if l != j:
+                    touched.append((min(j, l), max(j, l)))
+                if l != k:
+                    touched.append((min(k, l), max(k, l)))
+                touched.append((l, n))
+            upd = dict(zip(touched, weigh(touched)))
+            weights.update(upd)
+            for p, w in upd.items():
+                heapq.heappush(heap, (-w, p))
+
+        logger.debug(
+            "kmer_set_set: sketch table on %s %.4f s (%d pair weights, "
+            "%d rows)", self.device, oracle_s, n_weighed, oracle.n,
+        )
+
+    @classmethod
+    def load(
+        cls,
+        config: KConfig,
+        directory: str,
+        decompressor: str,
+        extension: str,
+        canonical: bool,
+        workers: int = 1,
+        *,
+        device,
+    ) -> "KmerSetSet":
+        """The reference's load (:435-460) of port compacts on
+        `device`."""
+        meta = core_io.read_lines(
+            os.path.join(directory, f"meta.{extension}"), decompressor
+        )
+        children = deserialize_adjacency_list(meta[0])
+        n = int(meta[1])
+
+        def _load_one(i: int) -> KmerSetCompact:
+            return KmerSetCompact.load(
+                config.k, os.path.join(directory, f"{i}.{extension}"),
+                decompressor, device=device,
+            )
+
+        sets = _parallel_map(_load_one, range(n), workers)
+        return cls(sets, canonical, config, _children=children, device=device)
+
+
+class KmerSetSetReader(ref.KmerSetSetReader):
+    """The reference's Reader (:463-565): reads meta only and loads the
+    files reachable from a requested set, as port compacts decoded on
+    `device`."""
+
+    def __init__(
+        self,
+        config: KConfig,
+        directory: str,
+        extension: str,
+        decompressor: str,
+        canonical: bool,
+        children: AdjacencyList,
+        size: int,
+        *,
+        device,
+    ):
+        super().__init__(
+            config, directory, extension, decompressor, canonical, children,
+            size,
+        )
+        self.device = resolve_device(device)
+
+    @classmethod
+    def from_directory(
+        cls,
+        config: KConfig,
+        directory: str,
+        extension: str,
+        decompressor: str,
+        canonical: bool,
+        *,
+        device,
+    ) -> "KmerSetSetReader":
+        meta = core_io.read_lines(
+            os.path.join(directory, f"meta.{extension}"), decompressor
+        )
+        return cls(
+            config, directory, extension, decompressor, canonical,
+            deserialize_adjacency_list(meta[0]), int(meta[1]), device=device,
+        )
+
+    def _load(self, idx: int) -> np.ndarray:
+        s = KmerSetCompact.load(
+            self.config.k,
+            os.path.join(self.directory, f"{idx}.{self.extension}"),
+            self.decompressor,
+            device=self.device,
+        )
+        return s.kmers(self.canonical)
+
+    def get(self, i: int, workers: int = 1) -> KmerSet:
+        parts = _parallel_map(
+            self._load, reachable_ids(self.children_, i), workers
+        )
+        return KmerSet(
+            self.config.k, sorted_unique(np.concatenate(parts)), _sorted=True
+        )
+
+    def get_all(self, workers: int = 1):
+        """Yields (i, KmerSet) for every original set, loading and decoding
+        each reachable child file once across the sweep, as the
+        reference's get_all (:524-565) does.  A cached child array is
+        released once no later set needs it, and the whole cache when the
+        generator is closed early (the reference keeps it until the
+        generator is collected)."""
+        n = self._size
+        reach = [reachable_ids(self.children_, i) for i in range(n)]
+        uses: Dict[int, int] = {}
+        for ids in reach:
+            for j in ids:
+                uses[j] = uses.get(j, 0) + 1
+
+        cache: Dict[int, np.ndarray] = {}
+        try:
+            for i in range(n):
+                ids = reach[i]
+                missing = [j for j in ids if j not in cache]
+                loaded = _parallel_map(self._load, missing, workers)
+                cache.update(zip(missing, loaded))
+                parts = [cache[j] for j in ids]
+                for j in ids:
+                    uses[j] -= 1
+                    if uses[j] == 0:
+                        del cache[j]
+                yield i, KmerSet(
+                    self.config.k,
+                    sorted_unique(np.concatenate(parts)),
+                    _sorted=True,
+                )
+        finally:
+            cache.clear()

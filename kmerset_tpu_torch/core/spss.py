@@ -13,7 +13,9 @@ Editions of kmerset_tpu.core.spss:
 - get_spss_canonical (:1082-1084), which then calls the reference's
   get_spss_canonical_from_unitigs as it is;
 - decode_unique_kmers (:1087-1118) and get_kmer_set_from_spss
-  (:1121-1124), which decode through the port's device_unique.
+  (:1121-1124), which decode through the port's device_unique, or in
+  halo chunks (device_unique_chunked) above the device's one-shot
+  ceiling.
 The directed build (get_spss) stays the reference's host code.
 """
 
@@ -128,8 +130,13 @@ def decode_unique_kmers(
 ) -> np.ndarray:
     """Sorted distinct (canonical) k-mers of an SPSS, counted on `device`
     at cutoff 1."""
-    if int(spss.codes.shape[0]) - k + 1 <= 0:
+    n_windows = int(spss.codes.shape[0]) - k + 1
+    if n_windows <= 0:
         return np.empty(0, np.int64)
+    if n_windows > backend.window_ceiling(k, backend.memory_budget(device)):
+        return backend.device_unique_chunked(
+            spss.codes, spss.offsets, k, canonical, device=device
+        )
     return backend.device_unique(
         spss.codes, spss.offsets, k, canonical, device=device
     )

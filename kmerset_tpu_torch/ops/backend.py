@@ -1,40 +1,109 @@
 """Host <-> device staging for the port's counting pipeline.
 
-Counterpart of the single-device one-shot path of
-kmerset_tpu/ops/backend.py: device_count (:694-820), device_unique
-(:499-519) and the staging they share (_staged_windows_u8, :460-496).
-The reference's host state is the (codes uint8, offsets int64) pair that
-the native FASTA parser (core/native.parse_fasta_bytes) and
+Counterpart of the single-device paths of kmerset_tpu/ops/backend.py:
+device_count (:694-820), device_unique (:499-519), the staging they share
+(_staged_windows_u8, :460-496), and the out-of-core chunked paths
+device_count_chunked and device_unique_chunked (:630-688).  The
+reference's host state is the (codes uint8, offsets int64) pair that the
+native FASTA parser (core/native.parse_fasta_bytes) and
 core/io.reads_to_codes produce; `stage` turns it into the tensors that
 ops/count.py takes, and the fetches turn the device outputs back into the
 reference's numpy layout.
 
+The one-shot ceiling is a function of the key width and the memory the
+device has left (window_ceiling, memory_budget), not the reference's
+MAX_DEVICE_WINDOWS, which was sized for a 16 GB TPU.  Above it the count
+and the decode run in halo chunks of at most that many windows and merge
+the sorted runs on the host (the reference's merges, but for the
+keys-only fallback: _merge_key_pair).
+
 There is no host fallback: on CUDA an error raises.  Left for later slices
 (ROADMAP A): the slow-link probe and gap-encoded key downloads, resident
-device handles and side-code prefetch, the out-of-core chunked path and
-the mesh.  No pow2 padding either (good_sort_size exists for the TPU
-sort).  The unitig front-end stages its set itself
-(ops/unitigs.py:device_unitig_succ), under MAX_DEVICE_GRAPH_KMERS.
+device handles and side-code prefetch, and the mesh.  No pow2 padding
+either (good_sort_size exists for the TPU sort).
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+import threading
+from typing import Iterator, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
 from kmerset_tpu.core import native
+from kmerset_tpu.core.arrays import sorted_unique
+from kmerset_tpu.ops.backend import _merge_cascade, _merge_count_pair
 
+from .. import resolve_device
 from . import count as count_ops
+from .pack import SINGLE_MAX_K
 
 # The kernels index windows and keys with int32 (the position lane of the
-# compaction carries run-head positions as int32).
+# compaction carries run-head positions as int32): the bound of one shot,
+# and so of one chunk.
 MAX_WINDOWS = (1 << 31) - 1
-# The one-shot device unitig front-end (ops/unitigs.py) takes sets up to
-# the reference's cap (kmerset_tpu/ops/backend.py:390); larger sets need
-# the out-of-core front-end (ROADMAP A.6).
-MAX_DEVICE_GRAPH_KMERS = 1 << 26
+
+# Peak device bytes per window of one one-shot count (staging included),
+# by key width: int32 keys for k <= 15, int64 above.  Measured on one
+# H100 with torch.cuda.max_memory_allocated over count_kmers_frag at 2^24
+# windows (PERF.md section 5), rounded up.
+COUNT_BYTES_PER_WINDOW = {4: 48, 8: 72}
+# Peak device bytes per queried k-mer of one side-table chunk of the
+# graph front-end (ops/neighbors.side_tables), measured the same way.
+FRONT_END_BYTES_PER_QUERY = 320
+# The share of what the CUDA allocator can still obtain that one step may
+# plan to use; the rest covers the arrays that outlive the step (the
+# front-end's whole per-k-mer outputs) and fragmentation.
+DEVICE_MEMORY_SHARE = 0.5
+# Planning budget on the CPU, where a run shares the host's memory.
+HOST_BUDGET = 2 << 30
+
+_locks: dict = {}
+_locks_guard = threading.Lock()
+
+
+def device_lock(device) -> threading.Lock:
+    """The lock that serializes device sections on `device`.  Deferred
+    SPSS builds and decodes of the multi-set path run in thread pools; the
+    device steps (count, decode, graph front-end) take this lock, so at
+    most one of them runs on a device at a time and the kernels' launch
+    counters see no concurrent increments.  The host work between them
+    (chain walk, path cover, merges, file I/O) still runs in parallel.
+    No device section calls another, so the lock is not reentrant."""
+    dev = resolve_device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    with _locks_guard:
+        return _locks.setdefault(dev, threading.Lock())
+
+
+def memory_budget(device) -> int:
+    """Bytes one device step may plan to use on `device`: on CUDA,
+    DEVICE_MEMORY_SHARE of the card's free memory plus the blocks the
+    caching allocator holds free; on the CPU, HOST_BUDGET."""
+    dev = resolve_device(device)
+    if dev.type != "cuda":
+        return HOST_BUDGET
+    free, _ = torch.cuda.mem_get_info(dev)
+    cached = torch.cuda.memory_reserved(dev) - torch.cuda.memory_allocated(dev)
+    return int((free + cached) * DEVICE_MEMORY_SHARE)
+
+
+def count_bytes_per_window(k: int) -> int:
+    return COUNT_BYTES_PER_WINDOW[4 if k <= SINGLE_MAX_K else 8]
+
+
+def window_ceiling(k: int, budget: int) -> int:
+    """The most windows one count (or decode) at k takes in one shot
+    within `budget` bytes, and at most MAX_WINDOWS; at least 1."""
+    return max(1, min(MAX_WINDOWS, budget // count_bytes_per_window(k)))
+
+
+def query_chunk_kmers(budget: int) -> int:
+    """The most k-mers one side-table chunk of the front-end queries
+    within `budget` bytes; at least 1."""
+    return max(1, budget // FRONT_END_BYTES_PER_QUERY)
 
 
 class Staged(NamedTuple):
@@ -55,8 +124,8 @@ def stage(
     if total - (k - 1) > MAX_WINDOWS:
         raise ValueError(
             f"{total - (k - 1)} windows exceed the int32 position lane of "
-            f"the port's kernels ({MAX_WINDOWS}); out-of-core counting is "
-            "ROADMAP A.6"
+            f"the port's kernels ({MAX_WINDOWS}) in one shot; count in "
+            "chunks (device_count_chunked)"
         )
     packed = native.pack2(np.ascontiguousarray(codes, dtype=np.uint8))
     bounds = np.asarray(offsets, dtype=np.int64)[1:].astype(np.int32)
@@ -93,12 +162,13 @@ def device_count(
     device, value_max: int = 0,
 ) -> Tuple[np.ndarray, np.ndarray]:
     """Sorted distinct (canonical) k-mers of the fragment stream and their
-    counts, counted on `device`."""
-    staged = stage(codes, offsets, k, device)
-    if staged is None:
-        return np.empty(0, np.int64), np.empty(0, np.int64)
-    keys, counts, _ = count_ops.count_kmers_frag(*staged, k, canonical)
-    return _count_fetch(keys, counts, value_max)
+    counts, counted on `device` in one shot."""
+    with device_lock(device):
+        staged = stage(codes, offsets, k, device)
+        if staged is None:
+            return np.empty(0, np.int64), np.empty(0, np.int64)
+        keys, counts, _ = count_ops.count_kmers_frag(*staged, k, canonical)
+        return _count_fetch(keys, counts, value_max)
 
 
 def device_unique(
@@ -106,8 +176,84 @@ def device_unique(
 ) -> np.ndarray:
     """Sorted distinct (canonical) k-mers of the fragment stream: the
     decode direction, the counting pipeline at cutoff 1 without counts."""
-    staged = stage(codes, offsets, k, device)
-    if staged is None:
+    with device_lock(device):
+        staged = stage(codes, offsets, k, device)
+        if staged is None:
+            return np.empty(0, np.int64)
+        keys, _, _ = count_ops.count_to_set_frag(*staged, k, canonical, 1)
+        return keys.cpu().numpy().astype(np.int64, copy=False)
+
+
+def chunk_slices(
+    codes: np.ndarray, offsets: np.ndarray, k: int, chunk_windows: int
+) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
+    """Yields (codes_slice, offsets_slice) per chunk of `chunk_windows`
+    windows, each with its k-1 code halo, so that the windows starting in
+    [lo, hi) see their true fragment cover and per-chunk validity equals
+    the global validity (reference _chunk_slices, backend.py:574-592, with
+    the chunk size as a parameter)."""
+    if chunk_windows < 1:
+        raise ValueError(f"chunk_windows must be >= 1, got {chunk_windows}")
+    n_windows = codes.shape[0] - (k - 1)
+    lo = 0
+    while lo < n_windows:
+        hi = min(lo + chunk_windows, n_windows)
+        hi_code = hi + k - 1
+        a = np.searchsorted(offsets, lo, side="right")
+        b = np.searchsorted(offsets, hi_code, side="left")
+        offs_c = np.unique(
+            np.concatenate([[0], offsets[a:b] - lo, [hi_code - lo]])
+        )
+        yield codes[lo:hi_code], offs_c
+        lo = hi
+
+
+def _chunks(codes, offsets, k: int, device, chunk_windows: Optional[int]):
+    if chunk_windows is None:
+        chunk_windows = window_ceiling(k, memory_budget(device))
+    return chunk_slices(codes, offsets, k, min(chunk_windows, MAX_WINDOWS))
+
+
+def device_count_chunked(
+    codes: np.ndarray, offsets: np.ndarray, k: int, canonical: bool, *,
+    device, chunk_windows: Optional[int] = None,
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Out-of-core count on one device: every halo chunk of at most
+    `chunk_windows` windows (default: the device's one-shot ceiling)
+    through the one-shot count, and the sorted (keys, raw int64 counts)
+    runs merged on the host.  Counts stay raw: the caller saturates them
+    after the merge, or cross-chunk sums would saturate early
+    (reference backend.py:705-710)."""
+    if codes.shape[0] - (k - 1) <= 0:
+        return np.empty(0, np.int64), np.empty(0, np.int64)
+    parts = [
+        device_count(c, o, k, canonical, device=device)
+        for c, o in _chunks(codes, offsets, k, device, chunk_windows)
+    ]
+    return _merge_cascade(parts, _merge_count_pair)
+
+
+def _merge_key_pair(ak: np.ndarray, bk: np.ndarray) -> np.ndarray:
+    """Sorted union of two sorted-unique key runs: the native one-pass
+    merge, else the reference's sorted_unique of the concatenation.  The
+    reference's own fallback here (np.union1d, backend.py:543-551) goes
+    through np.unique: with it, the chunked decode of a 16.8M-window dump
+    in 5 chunks took 82.1 s on the host of an H100 machine, and 1.7 s with
+    sorted_unique (PERF.md)."""
+    m = native.merge_keys(ak, bk)
+    return m if m is not None else sorted_unique(np.concatenate([ak, bk]))
+
+
+def device_unique_chunked(
+    codes: np.ndarray, offsets: np.ndarray, k: int, canonical: bool, *,
+    device, chunk_windows: Optional[int] = None,
+) -> np.ndarray:
+    """Out-of-core decode on one device: halo chunks through the cutoff-1
+    pipeline, combined by keys-only sorted-union merges."""
+    if codes.shape[0] - (k - 1) <= 0:
         return np.empty(0, np.int64)
-    keys, _, _ = count_ops.count_to_set_frag(*staged, k, canonical, 1)
-    return keys.cpu().numpy().astype(np.int64, copy=False)
+    parts = [
+        device_unique(c, o, k, canonical, device=device)
+        for c, o in _chunks(codes, offsets, k, device, chunk_windows)
+    ]
+    return _merge_cascade(parts, _merge_key_pair)

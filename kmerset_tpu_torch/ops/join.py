@@ -34,4 +34,4 @@ def lookup_join(A: torch.Tensor, Q: torch.Tensor) -> Tuple[torch.Tensor, torch.T
     A, Q = A.to(dtype), Q.to(dtype)
     pos = torch.searchsorted(A, Q).clamp_(max=n - 1)  # above A[-1]: n
     found = A[pos] == Q
-    return found, torch.where(found, pos, torch.zeros_like(pos))
+    return found, pos.masked_fill_(~found, 0)

@@ -30,23 +30,31 @@ def reverse_complement(x: torch.Tensor, k: int) -> torch.Tensor:
     It starts from ~x, so values are negative in between, and torch's >>
     on a signed int is arithmetic: every right shift is followed by a mask
     whose top bits are clear, which drops the copied sign bits (left
-    shifts wrap, as torch shifts the unsigned bits)."""
+    shifts wrap, as torch shifts the unsigned bits).  Each round works in
+    place on one copy of x, so the peak is about three arrays of x's
+    size."""
     x = ~x
-    x = ((x >> 2) & _M2) | ((x & _M2) << 2)
-    x = ((x >> 4) & _M4) | ((x & _M4) << 4)
-    x = ((x >> 8) & _M8) | ((x & _M8) << 8)
-    x = ((x >> 16) & _M16) | ((x & _M16) << 16)
-    x = ((x >> 32) & _M32) | ((x & _M32) << 32)
-    return (x >> (64 - 2 * k)) & ((1 << (2 * k)) - 1)
+    for shift, m in ((2, _M2), (4, _M4), (8, _M8), (16, _M16), (32, _M32)):
+        hi = (x >> shift).bitwise_and_(m)
+        x.bitwise_and_(m).bitwise_left_shift_(shift).bitwise_or_(hi)
+    x = x >> (64 - 2 * k)
+    return x.bitwise_and_((1 << (2 * k)) - 1)
 
 
-def side_tables(A: torch.Tensor, k: int, canonical: bool = True):
-    """((rdeg, rnbr, rsame), (ldeg, lnbr, lsame)) of the sorted unique
-    canonical k-mers A (int32 or int64, odd k): deg (int32) counts the
-    distinct neighbours on that side, nbr (int64) is the position of the
-    first one in base order c = 0..3 (0 where deg == 0), and same (bool)
-    says that neighbour is entered on its own same side (its candidate was
-    not canonical).  A k-mer is never its own neighbour.
+def side_tables(
+    A: torch.Tensor, k: int, canonical: bool = True, lo: int = 0,
+    hi: int | None = None,
+):
+    """((rdeg, rnbr, rsame), (ldeg, lnbr, lsame)) of the k-mers A[lo:hi]
+    (all of A by default) in the graph of the sorted unique canonical
+    k-mers A (int32 or int64, odd k): deg (int32) counts the distinct
+    neighbours on that side, nbr (int64) is the position in A of the first
+    one in base order c = 0..3 (0 where deg == 0), and same (bool) says
+    that neighbour is entered on its own same side (its candidate was not
+    canonical).  A k-mer is never its own neighbour.  Every k-mer's row
+    depends only on the k-mer and A, so the rows of a range equal those
+    rows of the whole; a range bounds the peak memory, which is ~8 int64
+    candidates and their lookups per k-mer of the range.
 
     Only the canonical graph is built here; the directed one
     (canonical=False) stays on the reference's host build."""
@@ -56,21 +64,24 @@ def side_tables(A: torch.Tensor, k: int, canonical: bool = True):
             "graph is the reference's host build (ROADMAP A.5)"
         )
     A = A.to(torch.int64)
+    Q = A[lo:hi]
     mask = (1 << (2 * k)) - 1
     c = torch.arange(4, dtype=torch.int64, device=A.device)[:, None]
-    right = ((A << 2) & mask) | c  # next(a, c)
-    left = (A >> 2) | (c << (2 * (k - 1)))  # prev(a, c); a >= 0
-    cand = torch.cat([right, left])  # (8, n): group g = side * 4 + c
+    right = ((Q << 2) & mask) | c  # next(a, c)
+    left = (Q >> 2) | (c << (2 * (k - 1)))  # prev(a, c); a >= 0
+    cand = torch.cat([right, left])  # (8, m): group g = side * 4 + c
+    del right, left
     ncan = torch.minimum(cand, reverse_complement(cand, k))
-    found, idx = lookup_join(A, ncan.reshape(-1))
-    found = found.view(8, -1) & (ncan != A)  # no self-loop
-    idx = idx.view(8, -1)
     same_all = cand != ncan
+    del cand
+    found, idx = lookup_join(A, ncan.view(-1))
+    found = found.view(8, -1) & (ncan != Q)  # no self-loop
+    idx = idx.view(8, -1)
     out = []
     for side in range(2):
-        deg = torch.zeros_like(A, dtype=torch.int32)
-        nbr = torch.zeros_like(A)
-        same = torch.zeros_like(A, dtype=torch.bool)
+        deg = torch.zeros_like(Q, dtype=torch.int32)
+        nbr = torch.zeros_like(Q)
+        same = torch.zeros_like(Q, dtype=torch.bool)
         for g in range(4 * side, 4 * side + 4):
             first = found[g] & (deg == 0)
             nbr = torch.where(first, idx[g], nbr)

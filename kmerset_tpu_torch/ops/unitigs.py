@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import logging
 import time
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -26,10 +26,39 @@ from .neighbors import side_tables
 logger = logging.getLogger("kmerset")
 
 
-def unitig_succ(A: torch.Tensor, k: int) -> Tuple[torch.Tensor, ...]:
+def _chunked_side_tables(A: torch.Tensor, k: int, query_chunk: int):
+    """side_tables of all of A, built over ranges A[lo:lo + query_chunk]
+    each joined against the whole of A, into whole per-k-mer arrays
+    (~26 B per k-mer)."""
+    n = A.shape[0]
+    if query_chunk >= n:
+        return side_tables(A, k, True)
+    out = []
+    for _ in range(2):
+        out.append((torch.empty(n, dtype=torch.int32, device=A.device),
+                    torch.empty(n, dtype=torch.int64, device=A.device),
+                    torch.empty(n, dtype=torch.bool, device=A.device)))
+    for lo in range(0, n, query_chunk):
+        hi = min(lo + query_chunk, n)
+        for whole, part in zip(out, side_tables(A, k, True, lo, hi)):
+            for w, p in zip(whole, part):
+                w[lo:hi] = p
+    return out[0], out[1]
+
+
+def unitig_succ(
+    A: torch.Tensor, k: int, query_chunk: Optional[int] = None
+) -> Tuple[torch.Tensor, ...]:
     """(succ (2n,) int64 with -1 at terminal exits, term_l, term_r, both
-    (n,) bool) of the sorted unique canonical k-mers A on A's device."""
-    (rdeg, rnbr, rsame), (ldeg, lnbr, lsame) = side_tables(A, k, True)
+    (n,) bool) of the sorted unique canonical k-mers A on A's device.  The
+    side tables are built over query ranges of `query_chunk` k-mers (all
+    of A in one range by default); the result is the same at every
+    chunk size."""
+    if query_chunk is not None and query_chunk < 1:
+        raise ValueError(f"query_chunk must be >= 1, got {query_chunk}")
+    (rdeg, rnbr, rsame), (ldeg, lnbr, lsame) = _chunked_side_tables(
+        A, k, A.shape[0] if query_chunk is None else query_chunk
+    )
     # Terminal tests (reference: lib/core/spss.h:276-313): a side is
     # terminal unless its unique mate's corresponding side also has a
     # unique back-edge.
@@ -51,31 +80,32 @@ def _sync(dev: torch.device) -> None:
 
 
 def device_unitig_succ(
-    A: np.ndarray, k: int, *, device
+    A: np.ndarray, k: int, *, device, query_chunk: Optional[int] = None
 ) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
     """unitig_succ of the host array A (sorted unique canonical int64
     k-mers) on `device`, as host arrays: (succ int64, term_l, term_r,
-    both bool).  Logs the upload, device and download times at debug
-    level.  Sets above backend.MAX_DEVICE_GRAPH_KMERS raise."""
+    both bool).  The set is uploaded once; its side tables are built in
+    query chunks of `query_chunk` k-mers, by default as many as the
+    device's memory budget allows (backend.query_chunk_kmers).  Logs the
+    upload, device and download times and the chunk count at debug
+    level."""
     n = int(A.shape[0])
-    if n > backend.MAX_DEVICE_GRAPH_KMERS:
-        raise ValueError(
-            f"{n} k-mers exceed the one-shot device graph cap "
-            f"({backend.MAX_DEVICE_GRAPH_KMERS}); an out-of-core front-end "
-            "is ROADMAP A.6"
-        )
     dev = resolve_device(device)
-    t0 = time.perf_counter()
-    At = torch.from_numpy(np.ascontiguousarray(A, dtype=np.int64)).to(dev)
-    _sync(dev)
-    t1 = time.perf_counter()
-    out = unitig_succ(At, k)
-    _sync(dev)
-    t2 = time.perf_counter()
-    succ, term_l, term_r, both = (x.cpu().numpy() for x in out)
-    t3 = time.perf_counter()
+    with backend.device_lock(dev):
+        if query_chunk is None:
+            query_chunk = backend.query_chunk_kmers(backend.memory_budget(dev))
+        t0 = time.perf_counter()
+        At = torch.from_numpy(np.ascontiguousarray(A, dtype=np.int64)).to(dev)
+        _sync(dev)
+        t1 = time.perf_counter()
+        out = unitig_succ(At, k, query_chunk)
+        _sync(dev)
+        t2 = time.perf_counter()
+        succ, term_l, term_r, both = (x.cpu().numpy() for x in out)
+        t3 = time.perf_counter()
     logger.debug(
         "unitigs: device front-end upload %.4f s, device %.4f s, "
-        "download %.4f s (%d k-mers)", t1 - t0, t2 - t1, t3 - t2, n,
+        "download %.4f s (%d k-mers, %d query chunks)", t1 - t0, t2 - t1,
+        t3 - t2, n, -(-n // max(1, query_chunk)),
     )
     return succ, term_l, term_r, both

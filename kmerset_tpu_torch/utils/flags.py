@@ -1,11 +1,12 @@
 """CLI flag plumbing: the reference's (kmerset_tpu/utils/flags.py), with a
 --trace that records a torch.profiler trace instead of a jax.profiler one
-(:131-142)."""
+(:131-142), and the port's --device flag."""
 
 from __future__ import annotations
 
 import contextlib
 import os
+import sys
 
 import torch
 
@@ -17,7 +18,33 @@ from kmerset_tpu.utils.flags import (  # noqa: F401 - re-exported
     parse_args,
 )
 
+from .. import resolve_device
+from ..ops.pack import MAX_K
+
 TRACE_FILE = "trace.json"
+
+
+def add_device_flag(parser) -> None:
+    parser.add_argument(
+        "--device",
+        default="cuda",
+        help="torch device for counting and decoding: cuda (default) or cpu",
+    )
+
+
+def device_or_exit(args, logger) -> torch.device:
+    """The device of --device, after checking that --k is ported; exits 1
+    on a k above MAX_K or a device that is not there (never a quiet CPU
+    run in place of CUDA)."""
+    if args.k > MAX_K:
+        print(f"k={args.k} is not ported: this package counts k <= {MAX_K}",
+              file=sys.stderr)
+        raise SystemExit(1)
+    try:
+        return resolve_device(args.device)
+    except (RuntimeError, ValueError) as e:
+        logger.error("%s", e)
+        sys.exit(1)
 
 
 @contextlib.contextmanager

@@ -1,0 +1,206 @@
+"""The port's out-of-core paths on the CPU: the chunked count and decode
+(kmerset_tpu_torch/ops/backend.py) against the reference's
+device_count_chunked and device_unique_chunked (JAX on the CPU, with
+CHUNK_WINDOWS patched small as tests/test_parallel.py does) and against
+the port's one-shot path; the graph front-end in query chunks against its
+one-shot result; and the memory-derived ceilings.  Every comparison is
+exact.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from kmerset_tpu.core import kmer as kc
+from kmerset_tpu.core.kmer_counter import KmerCounter as RefCounter
+from kmerset_tpu.core.kmer_counter import extract_kmers
+from kmerset_tpu.core.strings import PackedStrings
+from kmerset_tpu.ops import backend as ref_backend
+from kmerset_tpu_torch.core import spss as port_spss
+from kmerset_tpu_torch.core.kmer_counter import KmerCounter
+from kmerset_tpu_torch.ops import backend, unitigs
+
+
+def _codes(seed: int, n: int = 6000):
+    """Random codes split into fragments, with boundaries at and around
+    the 1500-window chunk edges and fragments shorter than k."""
+    rng = np.random.default_rng(seed)
+    codes = rng.integers(0, 4, n).astype(np.uint8)
+    codes[3000:3600] = codes[100:700]  # repeats: counts above 1
+    offsets = np.array([0, 1499, 1501, 1510, 3000, 4500, 4501, n], np.int64)
+    return codes, offsets
+
+
+@pytest.mark.parametrize("k", [9, 15, 23])
+def test_count_chunked_matches_reference_and_one_shot(monkeypatch, k):
+    codes, offsets = _codes(k)
+    monkeypatch.setattr(ref_backend, "CHUNK_WINDOWS", 1500)
+    want = ref_backend.device_count_chunked(codes, offsets, k, True)
+    assert want is not None
+    one_k, one_c = backend.device_count(codes, offsets, k, True, device="cpu")
+    np.testing.assert_array_equal(one_k, want[0])
+    np.testing.assert_array_equal(one_c, want[1])
+    assert want[1].max() > 1
+    for chunk in (1500, 977, 6000):
+        keys, counts = backend.device_count_chunked(
+            codes, offsets, k, True, device="cpu", chunk_windows=chunk
+        )
+        assert keys.dtype == counts.dtype == np.int64
+        np.testing.assert_array_equal(keys, want[0])
+        np.testing.assert_array_equal(counts, want[1])
+
+
+@pytest.mark.parametrize("k", [9, 15, 23])
+def test_unique_chunked_matches_reference_and_one_shot(monkeypatch, k):
+    codes, offsets = _codes(100 + k)
+    monkeypatch.setattr(ref_backend, "CHUNK_WINDOWS", 1500)
+    want = ref_backend.device_unique_chunked(codes, offsets, k, True)
+    assert want is not None
+    np.testing.assert_array_equal(
+        backend.device_unique(codes, offsets, k, True, device="cpu"), want
+    )
+    for chunk in (1500, 977, 6000):
+        got = backend.device_unique_chunked(
+            codes, offsets, k, True, device="cpu", chunk_windows=chunk
+        )
+        np.testing.assert_array_equal(got, want)
+
+
+def test_chunk_slices_keep_halo_and_reject_empty_chunks():
+    codes, offsets = _codes(3)
+    k, chunk = 15, 1500
+    parts = list(backend.chunk_slices(codes, offsets, k, chunk))
+    assert len(parts) == -(-(codes.size - k + 1) // chunk)
+    lo = 0
+    for c, o in parts:
+        np.testing.assert_array_equal(c, codes[lo : lo + c.size])
+        assert c.size <= chunk + k - 1 and o[0] == 0 and o[-1] == c.size
+        lo += chunk
+    with pytest.raises(ValueError, match="chunk_windows"):
+        list(backend.chunk_slices(codes, offsets, k, 0))
+    short = codes[: k - 1]
+    offs = np.array([0, k - 1], np.int64)
+    keys, counts = backend.device_count_chunked(short, offs, k, True, device="cpu")
+    assert keys.size == counts.size == 0
+    assert backend.device_unique_chunked(short, offs, k, True, device="cpu").size == 0
+
+
+def test_ceilings_at_given_budgets():
+    for k, per in ((9, 48), (15, 48), (19, 72), (23, 72)):
+        assert backend.count_bytes_per_window(k) == per
+        assert backend.window_ceiling(k, per * 1000) == 1000
+        assert backend.window_ceiling(k, per * 1000 + per - 1) == 1000
+        assert backend.window_ceiling(k, 0) == 1
+        assert backend.window_ceiling(k, 1 << 50) == backend.MAX_WINDOWS
+    per = backend.FRONT_END_BYTES_PER_QUERY
+    assert backend.query_chunk_kmers(per * 4096) == 4096
+    assert backend.query_chunk_kmers(per - 1) == 1
+    assert backend.memory_budget("cpu") == backend.HOST_BUDGET
+    # 80 GB of free memory: the k = 15 ceiling is far above 2^24 windows.
+    assert backend.window_ceiling(15, 40 << 30) > 1 << 28
+
+
+def _spy(monkeypatch, module, name):
+    calls = []
+    orig = getattr(module, name)
+
+    def spy(*args, **kw):
+        calls.append(1)
+        return orig(*args, **kw)
+
+    monkeypatch.setattr(module, name, spy)
+    return calls
+
+
+@pytest.mark.parametrize("k", [15, 23])
+def test_counter_and_decode_route_by_the_ceiling(monkeypatch, k):
+    """Below the ceiling the one-shot path, above it the chunked one; both
+    equal the reference's host count and decode.  Chunked counts stay raw
+    until after the merge, then saturate at value_max."""
+    codes, offsets = _codes(200 + k)
+    codes[3600:4500] = np.tile(codes[3000:3090], 10)  # a run above value_max
+    ref = RefCounter._from_codes(k, codes, offsets, True, value_max=3)
+    ps = PackedStrings(codes, offsets)
+    want = np.unique(extract_kmers(codes, offsets, k, True))
+    chunked = _spy(monkeypatch, backend, "device_count_chunked")
+    unique_chunked = _spy(monkeypatch, backend, "device_unique_chunked")
+    port = KmerCounter._from_codes(k, codes, offsets, True, 3, device="cpu")
+    np.testing.assert_array_equal(
+        port_spss.decode_unique_kmers(ps, k, True, device="cpu"), want
+    )
+    assert chunked == unique_chunked == []
+    per = backend.count_bytes_per_window(k)
+    monkeypatch.setattr(backend, "memory_budget", lambda device: per * 1000)
+    small = KmerCounter._from_codes(k, codes, offsets, True, 3, device="cpu")
+    np.testing.assert_array_equal(
+        port_spss.decode_unique_kmers(ps, k, True, device="cpu"), want
+    )
+    assert chunked == unique_chunked == [1]
+    for c in (port, small):
+        np.testing.assert_array_equal(c.kmers, ref.kmers)
+        np.testing.assert_array_equal(c.counts, ref.counts)
+    assert (ref.counts == 3).any() and ref.counts.max() == 3
+
+
+def _canonical_set(k: int, n: int, seed: int) -> np.ndarray:
+    codes = np.random.default_rng(seed).integers(0, 4, n).astype(np.int64)
+    return np.unique(kc.canonical(kc.kmers_from_codes(codes, k), k))
+
+
+@pytest.mark.parametrize("chunk", ["1", "7", "n"])
+@pytest.mark.parametrize("k", [9, 23])
+def test_unitig_succ_query_chunks_bit_for_bit(k, chunk):
+    A = _canonical_set(k, 600 if chunk == "1" else 5000, k)
+    want = unitigs.device_unitig_succ(A, k, device="cpu")
+    q = A.size if chunk == "n" else int(chunk)
+    got = unitigs.device_unitig_succ(A, k, device="cpu", query_chunk=q)
+    for name, g, w in zip(("succ", "term_l", "term_r", "both"), got, want):
+        assert g.dtype == w.dtype, name
+        np.testing.assert_array_equal(g, w, err_msg=name)
+    if k == 9:  # a branching set: first-neighbour order is exercised
+        assert (want[0] == -1).sum() > 0 and (want[0] >= 0).sum() > 0
+
+
+def test_front_end_above_the_memory_ceiling_does_not_raise(monkeypatch):
+    """A set larger than the front-end's one-shot budget (the role the old
+    fixed 2^26 cap played) is built in query chunks, equal to the host's
+    construction."""
+    from kmerset_tpu.core import spss
+
+    k = 15
+    A = _canonical_set(k, 8000, 5)
+    calls = _spy(monkeypatch, unitigs, "side_tables")
+    budget = backend.FRONT_END_BYTES_PER_QUERY * 1000
+    monkeypatch.setattr(backend, "memory_budget", lambda device: budget)
+    succ, term_l, term_r, both = unitigs.device_unitig_succ(A, k, device="cpu")
+    assert len(calls) == -(-A.size // 1000) > 1
+    (rdeg, rnbr, rsame), (ldeg, lnbr, lsame) = spss._side_tables(A, k, True)
+    mate_r = np.where(rsame, rdeg[rnbr], ldeg[rnbr])
+    want_r = (rdeg != 1) | (mate_r != 1)
+    mate_l = np.where(lsame, ldeg[lnbr], rdeg[lnbr])
+    want_l = (ldeg != 1) | (mate_l != 1)
+    np.testing.assert_array_equal(term_r, want_r)
+    np.testing.assert_array_equal(term_l, want_l)
+    np.testing.assert_array_equal(succ[0::2], np.where(want_r, -1, 2 * rnbr + rsame))
+    with pytest.raises(ValueError, match="query_chunk"):
+        unitigs.unitig_succ(torch.from_numpy(A), k, 0)
+
+
+def test_key_merge_fallback_matches_native_merge(monkeypatch):
+    """The keys-only merge of the chunked decode: the native merge, and
+    without it the sorted_unique fallback, equal np.union1d on shared,
+    disjoint and empty runs."""
+    from kmerset_tpu.core import native
+
+    rng = np.random.default_rng(29)
+    a = np.unique(rng.integers(0, 5000, 3000)).astype(np.int64)
+    b = np.unique(rng.integers(2500, 9000, 3000)).astype(np.int64)
+    e = np.empty(0, np.int64)
+    cases = [(a, b), (b, a), (a, e), (e, e), (a, a)]
+    want = [np.union1d(x, y) for x, y in cases]
+    for merge_keys in (native.merge_keys, lambda ak, bk: None):
+        monkeypatch.setattr(native, "merge_keys", merge_keys)
+        for (x, y), w in zip(cases, want):
+            got = backend._merge_key_pair(x, y)
+            assert got.dtype == np.int64
+            np.testing.assert_array_equal(got, w)

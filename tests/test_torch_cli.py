@@ -159,3 +159,115 @@ def test_counter_saturates_like_reference():
         (ps, pn), (rs, rn) = port.to_kmer_set(cutoff), ref.to_kmer_set(cutoff)
         assert pn == rn
         np.testing.assert_array_equal(ps.kmers, rs.kmers)
+
+
+# -- the multi-set CLIs, kmerset-stat and spss-benchmark -------------------
+
+_HASH_SIZE = re.compile(r"kmer_set\.(Hash|Size)\(\) = (\d+)")
+
+
+@pytest.fixture(scope="module")
+def strain_sets(tmp_path_factory):
+    """Five compact set files (k = 15) of point-mutated strains of one
+    random genome, and each CLI's compress run of them: the port's with
+    --workers 4 on --device cpu, the reference's pinned to its host path
+    with --workers 1."""
+    from kmerset_tpu.core import kmer as kc
+    from kmerset_tpu.core.kmer_set import KmerSet
+    from kmerset_tpu_torch.core.kmer_set_compact import KmerSetCompact
+
+    d = tmp_path_factory.mktemp("multi")
+    rng = np.random.default_rng(77)
+    base = rng.integers(0, 4, 15000).astype(np.int64)
+    files = []
+    for i in range(5):
+        mut = base.copy()
+        pos = rng.integers(0, base.size, base.size // 250)
+        mut[pos] = rng.integers(0, 4, pos.size)
+        kmers = np.unique(kc.canonical(kc.kmers_from_codes(mut, 15), 15))
+        files.append(str(d / f"m{i}.txt"))
+        KmerSetCompact.from_kmer_set(
+            KmerSet(15, kmers, _sorted=True), True, device="cpu"
+        ).dump(files[-1])
+    runs = {}
+    for tag, module, extra in (
+        ("port", "kmerset_tpu_torch.cli.kmerset_multiple_compress",
+         ["--device", "cpu", "--workers", "4"]),
+        ("ref", "kmerset_tpu.cli.kmerset_multiple_compress", []),
+    ):
+        out = str(d / f"M_{tag}")
+        proc = _run(module, *extra, "--k", "15", "--seed", "1", "--out", out,
+                    "--out_graph", out + ".dot", *files)
+        assert proc.returncode == 0, proc.stderr
+        runs[tag] = (out, proc.stderr)
+    return files, runs
+
+
+def test_multiple_compress_byte_identical_to_reference(strain_sets):
+    import filecmp
+
+    _, runs = strain_sets
+    (port, port_log), (ref, ref_log) = runs["port"], runs["ref"]
+    names = sorted(os.listdir(port))
+    assert names == sorted(os.listdir(ref)) and "meta.txt" in names
+    assert len(names) > 6  # shared children were factored out
+    for name in names:
+        assert filecmp.cmp(os.path.join(port, name), os.path.join(ref, name),
+                           shallow=False), name
+    assert filecmp.cmp(port + ".dot", ref + ".dot", shallow=False)
+    sizes = re.compile(r"(i = \d+, size = \d+|total_size = \d+)")
+    assert sizes.findall(port_log) == sizes.findall(ref_log)
+
+
+def test_multiple_decompress_and_stat_match_reference(strain_sets):
+    files, runs = strain_sets
+    logs = {}
+    for tag, module, extra in (
+        ("port", "kmerset_tpu_torch.cli.kmerset_multiple_decompress",
+         ["--device", "cpu", "--workers", "3"]),
+        ("ref", "kmerset_tpu.cli.kmerset_multiple_decompress", []),
+    ):
+        proc = _run(module, *extra, "--k", "15", runs[tag][0])
+        assert proc.returncode == 0, proc.stderr
+        logs[tag] = _HASH_SIZE.findall(proc.stderr)
+    assert logs["port"] == logs["ref"]
+    port_stat = _run("kmerset_tpu_torch.cli.kmerset_stat", "--device", "cpu",
+                     "--k", "15", *files)
+    ref_stat = _run("kmerset_tpu.cli.kmerset_stat", "--k", "15", *files)
+    assert port_stat.returncode == 0, port_stat.stderr
+    assert port_stat.stdout == ref_stat.stdout
+    rows = [line.split("\t") for line in port_stat.stdout.splitlines()]
+    assert [r[1] for r in rows] == files
+    # Every original's decompressed Hash() and Size() is its stat row's.
+    decoded = logs["port"]
+    for i, (_, _, size, hash_) in enumerate(rows):
+        assert decoded[2 * i] == ("Hash", hash_)
+        assert decoded[2 * i + 1] == ("Size", size)
+
+
+def test_spss_benchmark_columns_match_reference(strain_sets):
+    files, _ = strain_sets
+    port = _run("kmerset_tpu_torch.cli.spss_benchmark", "--device", "cpu",
+                "--k", "15", files[0])
+    ref = _run("kmerset_tpu.cli.spss_benchmark", "--k", "15", files[0])
+    assert port.returncode == 0, port.stderr
+    assert ref.returncode == 0, ref.stderr
+    p, r = port.stdout.split(), ref.stdout.split()
+    assert len(p) == len(r) == 8
+    # time weight time ok, for fast = False then True: weights and oks.
+    assert [p[i] for i in (1, 3, 5, 7)] == [r[i] for i in (1, 3, 5, 7)]
+    assert p[3] == p[7] == "1"
+    assert _HASH_SIZE.findall(port.stderr) == _HASH_SIZE.findall(ref.stderr)
+
+
+@pytest.mark.parametrize("cli", ["kmerset_stat", "kmerset_multiple_compress",
+                                 "kmerset_multiple_decompress",
+                                 "spss_benchmark"])
+def test_new_clis_exit_1_on_cuda_without_a_card(strain_sets, cli):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    files, runs = strain_sets
+    arg = runs["port"][0] if cli == "kmerset_multiple_decompress" else files[0]
+    proc = _run(f"kmerset_tpu_torch.cli.{cli}", "--k", "15", arg)
+    assert proc.returncode == 1
+    assert "cuda" in proc.stderr

@@ -107,9 +107,16 @@ def test_device_unitig_succ_bit_for_bit(k, kind):
 
 
 def test_front_end_limits_raise(monkeypatch):
+    """The directed graph and an empty query chunk raise; a set above
+    the front-end's one-shot memory budget no longer does (it is built in
+    query chunks, equal to the one-shot result)."""
     A = _random_set(9)
     with pytest.raises(ValueError, match="directed"):
         neighbors.side_tables(torch.from_numpy(A), 9, canonical=False)
-    monkeypatch.setattr(backend, "MAX_DEVICE_GRAPH_KMERS", A.size - 1)
-    with pytest.raises(ValueError, match="A.6"):
-        unitigs.device_unitig_succ(A, 9, device="cpu")
+    with pytest.raises(ValueError, match="query_chunk"):
+        unitigs.device_unitig_succ(A, 9, device="cpu", query_chunk=0)
+    want = unitigs.device_unitig_succ(A, 9, device="cpu")
+    budget = backend.FRONT_END_BYTES_PER_QUERY * (A.size - 1)
+    monkeypatch.setattr(backend, "memory_budget", lambda device: budget)
+    for g, w in zip(unitigs.device_unitig_succ(A, 9, device="cpu"), want):
+        np.testing.assert_array_equal(g, w)
