@@ -6,9 +6,14 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from the checkout's sources and holds
-each against its plain PyTorch version on the card: B1 (pack, k <= 15),
-B2 (pack, k = 17..23), B3 (compaction, int32 and int64 lanes), and the
-unitig graph front-end against itself on the CPU.  Then it drives the
+each against its plain PyTorch version on the card: B1 (pack) at every
+k from 1 to 15 and B2 at every k from 16 to 23, canonical and forward,
+with and without `valid`, at n = 1, below one tile, a ragged last tile
+and 2^24 windows; B3 (compaction, int32 and int64 lanes); and the unitig
+graph front-end against itself on the CPU.  Each kernel is timed at the
+main path's shape beside its bound (the bytes it must move over the
+card's 3.35 TB/s), its plain version and, for B3, the one PyTorch call
+that computes the same function (`lane[keep]` per lane).  Then it drives the
 port's `kmerset-build --check` on the card: run A (k = 15, a 2^24-base
 genome, cutoff 1), run C (k = 23, the same genome, cutoff 1) and run D
 (k = 19, ~3x-coverage reads of a 2^22-base genome, cutoff 2).  Each dump
@@ -29,6 +34,9 @@ Each phase prints one line.  The line before the last is a JSON summary of
 the kernels; the last line is {"ok": true, "device": {...}}.  Any failure
 raises, and the script exits non-zero without that line; it also exits
 non-zero, printing nothing to stdout, when no CUDA device is present.
+The port's process imports neither JAX nor the JAX package (kmerset_tpu):
+the reference runs only in the subprocesses of its CLIs, and the script
+checks sys.modules for both at the end.
 """
 
 from __future__ import annotations
@@ -53,6 +61,16 @@ WORK = os.path.join(ROOT, "build", "chip_smoke")
 SEED = 20241016
 CLI_LOGGER = "kmerset"  # the logger kmerset-build writes its log lines to
 DEVICE = "cuda"  # of the out-of-core, sketch and run M phases
+HBM_BYTES_PER_S = 3.35e12  # one H100 SXM's memory rate (NVIDIA data sheet)
+# One H100's published rate for scalar 32-bit work outside the tensor
+# cores (67 TFLOP/s float32), the yardstick of the kernels' integer and
+# bit operations.
+SCALAR_OPS_PER_S = 67e12
+# Integer operations per window of B1/B2 (two funnel shifts, mask, bit
+# reversal and pair swap, complement, min, valid test) and per element of
+# B3 (flag read, ballot rank, store address), counted from the sources.
+PACK_OPS_PER_WINDOW = 24
+COMPACT_OPS_PER_ELEMENT = 8
 
 
 def say(phase, msg: str) -> None:
@@ -61,7 +79,11 @@ def say(phase, msg: str) -> None:
 
 def time_ms(fn, reps: int = 7, inner: int = 10) -> float:
     """Median per-call device time of `fn` in ms: CUDA events around
-    `inner` back-to-back calls, `reps` times, after a warm-up."""
+    `inner` back-to-back calls, `reps` times, after a warm-up.  Each
+    repetition first queues a ~10 ms device sleep, so that the host has
+    queued all `inner` calls before the first starts: a wrapper's host
+    cost (phase 2 prints B1's and B2's) would otherwise be timed in
+    place of a kernel that is as short."""
     import torch
 
     for _ in range(3):
@@ -71,6 +93,7 @@ def time_ms(fn, reps: int = 7, inner: int = 10) -> float:
     for _ in range(reps):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(20_000_000)
         a.record()
         for _ in range(inner):
             fn()
@@ -112,22 +135,49 @@ def build_kernels() -> float:
     say(1, f"kernels built and loaded in {dt:.3f} s "
            f"({os.path.basename(_build.library_path())})")
     for line in _build.build_log().splitlines():
-        if "Used" in line or "Compiling entry" in line:
+        if "Used" in line or "Compiling entry" in line or "spill" in line:
             say(1, "ptxas: " + line.split("ptxas info    :")[-1].strip())
     return dt
 
 
-def check_pack(torch, rng, kernel: str, shapes) -> dict:
-    """Kernel B1 or B2 against the plain version at each (k, windows) in
-    `shapes`, canonical and forward, with and without `valid`.  Returns
-    its kernel-line entry, timed at the first shape."""
-    from kmerset_tpu_torch.ops import backend, pack
+def bound_ms(n_bytes: float, n_ops: float) -> Tuple[float, str]:
+    """The least time one H100 could take for a kernel's work: the larger
+    of its bytes over the memory rate and its operations over the scalar
+    rate, in ms, and which of the two it is."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / SCALAR_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
-    err, main_ms = 0, None
-    for k, n in shapes:
-        L = n + k - 1
-        codes = rng.integers(0, 4, L, dtype=np.uint8)
-        packed = backend.stage(codes, np.array([0, L]), k, "cuda").packed
+
+PACK_TILE = 4096  # windows per tile of csrc/pack.cu (kTile)
+# Window counts of the edge cases: one window, below one tile, a ragged
+# last tile, and several tiles with a packed length that is no multiple
+# of 16 bytes (ceil((2^16 + 4 + k) / 4) = 16385 + ceil(k / 4) bytes).
+PACK_EDGES = (1, 1000, 5 * PACK_TILE + 77, (1 << 16) + 5)
+
+
+def _packed_input(rng, k: int, n: int):
+    from kmerset_tpu_torch.ops import backend
+
+    L = n + k - 1
+    codes = rng.integers(0, 4, L, dtype=np.uint8)
+    if n > 100:  # a run of one base: the extreme keys 0 and 4^k - 1
+        codes[: n // 4] = 3 * (k % 2)
+    return L, backend.stage(codes, np.array([0, L]), k, "cuda").packed
+
+
+def check_pack(torch, rng, kernel: str, ks, timed) -> dict:
+    """Kernel B1 or B2 against the plain version at every k in `ks` and
+    window count in PACK_EDGES, and at 2^24 windows for each k in `timed`,
+    canonical and forward, with and without `valid`; times it at 2^24
+    windows beside its bound.  Returns its kernel-line entry, timed at
+    the first of `timed` (the main path's k = 15 or 23)."""
+    from kmerset_tpu_torch.ops import pack
+
+    err, main, n_cases = 0, None, 0
+    cases = [(k, n) for k in ks for n in PACK_EDGES] + [(k, 1 << 24) for k in timed]
+    for k, n in cases:
+        L, packed = _packed_input(rng, k, n)
         valid = torch.from_numpy(rng.random(n) > 0.01).cuda()
         for canonical in (True, False):
             for v in (valid, None):
@@ -137,24 +187,45 @@ def check_pack(torch, rng, kernel: str, shapes) -> dict:
                 e = int((got - want).abs().max())
                 if got.shape != (n,) or got.dtype != want.dtype or e != 0:
                     raise AssertionError(
-                        f"{kernel} k={k} canonical={canonical} "
+                        f"{kernel} k={k} n={n} canonical={canonical} "
                         f"valid={v is not None}: max err {e}"
                     )
                 err = max(err, e)
+                n_cases += 1
+        if n != 1 << 24:
+            continue
         ms = time_ms(lambda: pack.canonical_windows(packed, L, k, True, valid))
         plain = time_ms(
             lambda: pack.canonical_windows_plain(packed, L, k, True, valid), 3, 2
         )
-        say(2, f"{kernel} pack k={k} windows={n} ({got.dtype}): equal to plain "
-               f"(canonical and forward, with and without valid); kernel "
-               f"{ms:.4f} ms, plain {plain:.4f} ms")
-        if main_ms is None:
-            main_ms = (ms, plain)
+        # The wrapper's own host cost per call, the card left to catch up.
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(100):
+            pack.canonical_windows(packed, L, k, True, valid)
+        host_ms = (time.perf_counter() - t0) * 10
+        torch.cuda.synchronize()
+        # Each input byte read once (packed codes, valid), each key
+        # written once.
+        n_bytes = packed.shape[0] + n * (1 + got.element_size())
+        bound, by = bound_ms(n_bytes, PACK_OPS_PER_WINDOW * n)
+        say(2, f"{kernel} pack k={k} windows={n} ({got.dtype}): kernel "
+               f"{ms:.4f} ms, bound {bound:.4f} ms ({by}: {n_bytes / n:.2f} "
+               f"B per window), {100 * bound / ms:.1f}% of bound, "
+               f"{n_bytes / ms / 1e9:.3f} TB/s; plain {plain:.4f} ms; "
+               f"wrapper host time {host_ms:.4f} ms per call")
+        if main is None:
+            main = (ms, plain, bound, by)
+    say(2, f"{kernel} pack: equal to plain in all {n_cases} cases (k = "
+           f"{ks[0]}..{ks[-1]} at n = {', '.join(map(str, PACK_EDGES))}, and "
+           f"k = {', '.join(map(str, timed))} at 2^24; canonical and forward, "
+           "with and without valid)")
     replaces = {"B1": "kmerset_tpu/ops/pallas_pack.py:34",
                 "B2": "kmerset_tpu/ops/pallas_pack.py:85"}[kernel]
     return {"name": f"{kernel} pack: canonical_windows", "route": "cuda",
             "source": "kmerset_tpu_torch/csrc/pack.cu", "replaces": replaces,
-            "max_abs_err": err, "ms": main_ms[0], "plain_ms": main_ms[1]}
+            "max_abs_err": err, "ms": main[0], "plain_ms": main[1],
+            "bound_ms": main[2], "bound_by": main[3], "library_ms": None}
 
 
 def check_compact(torch, rng) -> dict:
@@ -163,7 +234,7 @@ def check_compact(torch, rng) -> dict:
     count).  Timed at the k = 15 count's 2 int32 lanes, all kept."""
     from kmerset_tpu_torch.ops import compact
 
-    err, main_ms = 0, None
+    err, main = 0, None
     for n in (1 << 24, 5_000_011):
         lane32 = torch.from_numpy(
             rng.integers(-(1 << 31), (1 << 31) - 1, n, dtype=np.int32)
@@ -195,17 +266,25 @@ def check_compact(torch, rng) -> dict:
                     plain = time_ms(
                         lambda: compact.compact_select_plain(lanes, keep), 3, 2
                     )
+                    # The same function as one PyTorch call per lane.
+                    library = time_ms(lambda: [lane[keep] for lane in lanes])
+                    width = sum(lane.element_size() for lane in lanes)
+                    bound, by = bound_ms(n * (1 + width) + m * width,
+                                         COMPACT_OPS_PER_ELEMENT * n)
                     say(3, f"B3 compact n={n} lanes={name} keep={frac}: "
-                           f"equal, n_sel={m}; kernel {ms:.4f} ms, "
-                           f"plain {plain:.4f} ms")
+                           f"equal, n_sel={m}; kernel {ms:.4f} ms, bound "
+                           f"{bound:.4f} ms ({by}), {100 * bound / ms:.1f}% "
+                           f"of bound; plain {plain:.4f} ms; lane[keep] per "
+                           f"lane {library:.4f} ms")
                     if name == "int32 x2" and frac == 1.0:
-                        main_ms = (ms, plain)
+                        main = (ms, plain, bound, by, library)
         say(3, f"B3 compact n={n}: kernel equal to plain for lanes int32, "
                "int32 x2 and int64+int32, keep fractions 0, 0.05, 0.5, 1")
     return {"name": "B3 compact: compact_select", "route": "cuda",
             "source": "kmerset_tpu_torch/csrc/compact.cu",
             "replaces": "kmerset_tpu/ops/pallas_compact.py:118",
-            "max_abs_err": err, "ms": main_ms[0], "plain_ms": main_ms[1]}
+            "max_abs_err": err, "ms": main[0], "plain_ms": main[1],
+            "bound_ms": main[2], "bound_by": main[3], "library_ms": main[4]}
 
 
 def check_front_end(torch, rng) -> None:
@@ -288,9 +367,9 @@ class _Capture(logging.Handler):
 
 _LOGGED = ("cutoff_count", "kmer_set.Size()", "kmer_set.Hash()",
            "kmer_set_compact.Size()")
-# Debug lines of the port's SPSS build (core/spss.py, through the
-# reference's _phase: "name: 1.23s"; ops/unitigs.py: the front-end's
-# upload, device and download).
+# Debug lines of the port's SPSS build (core/spss.py, through its
+# _phase: "name: 1.23s"; ops/unitigs.py: the front-end's upload, device
+# and download).
 _PHASES = ("unitigs: device front-end", "unitigs: chain walk",
            "unitigs: emission + cycles", "spss: path cover")
 _FRONT_END_IO = re.compile(
@@ -744,9 +823,6 @@ def main() -> int:
               "runs on an NVIDIA GPU", file=sys.stderr)
         return 1
     sys.path.insert(0, ROOT)
-    # Pin the reused reference host code to its host arms before any of it
-    # runs, so nothing in this process imports JAX.
-    os.environ["KMERSET_TPU_FORCE_BACKEND"] = "host"
     import kmerset_tpu_torch  # noqa: F401 - fails outside a checkout
 
     t_start = time.perf_counter()
@@ -766,9 +842,8 @@ def main() -> int:
     build_kernels()
     rng = np.random.default_rng(SEED)
     kernels = [
-        check_pack(torch, rng, "B1", ((15, 1 << 24), (7, 1 << 20), (11, 1 << 20))),
-        check_pack(torch, rng, "B2", ((23, 1 << 24), (19, 1 << 24),
-                                      (17, 1 << 20), (21, 1 << 20))),
+        check_pack(torch, rng, "B1", range(1, 16), (15,)),
+        check_pack(torch, rng, "B2", range(16, 24), (23, 19)),
         check_compact(torch, rng),
     ]
     check_front_end(torch, rng)
@@ -801,9 +876,14 @@ def main() -> int:
             raise AssertionError(f"kernel {name} was not launched by the runs")
     if "jax" in sys.modules:
         raise AssertionError("jax was imported during the port's run")
+    ref_mods = [m for m in sys.modules
+                if m == "kmerset_tpu" or m.startswith("kmerset_tpu.")]
+    if ref_mods:
+        raise AssertionError(f"the JAX package was imported: {ref_mods}")
     say(8, "launch counts over runs A, C, D and M: " + ", ".join(
         f"{k['name'].split()[0]} {k['launches']}" for k in kernels)
-        + f"; jax not in sys.modules; {time.perf_counter() - t_start:.1f} s")
+        + "; neither jax nor kmerset_tpu in sys.modules; "
+        f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,11 +2,18 @@
 
 A second package beside `kmerset_tpu` (the JAX/Pallas reference).  The
 device layer is PyTorch plus hand-written CUDA kernels for Hopper
-(`csrc/*.cu`, built on first use by `ops/_build.py`); the host layer (FASTA
-parsing, the native C runtime, the SPSS build, set types, file formats) is
-the reference package's own JAX-free code, imported and never copied or
-patched.  Module names follow the reference so that each counterpart can
-be found by path.
+(`csrc/*.cu`, built on first use by `ops/_build.py`).  The host layer
+(FASTA parsing, the ctypes bindings of the native C library, the SPSS
+chain walk and path cover, set types, file formats, CLI plumbing) is the
+port's own copy of the reference's host code, without its mesh and JAX
+routers: no module of this package imports `jax` or `kmerset_tpu`, and
+nothing here reads the reference's backend switches.  Module names follow
+the reference so that each counterpart can be found by path, and each
+copy names the lines it copies.  Both packages load the same C library,
+`native/libkmerio.so` at the root of the checkout, built from
+`native/kmerio.c` on first use.  In this package "the reference" is
+`kmerset_tpu`; citations of the form "reference: lib/..." in the copied
+code point to the original C++ project, as they do there.
 
 The device is always explicit: every entry point takes a `device`, and a
 request for CUDA where none is present raises instead of running on the

@@ -8,32 +8,24 @@ takes, exits 1).  Counting and the --check decode run on the device
 through the port's kernels (B1 for k = 15, B2 for k = 19 and 23, then
 B3), and so does the canonical SPSS build's unitig graph front-end; the
 cutoff filter, the chain walk, the string emission, the path cover and
-the dump are the reference's host code.  There is no multi-process
+the dump run on the host, in the port's copy of the reference's code.  There is no multi-process
 bring-up (multi-GPU is ROADMAP A.8).
 """
 
 from __future__ import annotations
 
 import argparse
-import os
 import sys
 
-from kmerset_tpu.core import io as core_io
-from kmerset_tpu.core.config import get_config
-from kmerset_tpu.utils.log import enable_debug_logs, init_default_logger
-
+from ..core import io as core_io
+from ..core.config import get_config
 from ..core.kmer_counter import KmerCounter
 from ..core.kmer_set_compact import KmerSetCompact
 from ..utils import flags as flag_util
+from ..utils.log import enable_debug_logs, init_default_logger
 
 
 def main(argv=None) -> None:
-    # The reused host graph code (the chain walk's and the path cover's
-    # mesh gates) routes through the reference's backend probes, which
-    # would import JAX (and let it claim the GPU) unless the reference's
-    # documented switch pins them to their host arms.
-    os.environ["KMERSET_TPU_FORCE_BACKEND"] = "host"
-
     parser = argparse.ArgumentParser(
         description=(
             "Reads a FASTA file and constructs a set of k-mers. "

@@ -6,7 +6,8 @@ log lines as kmerset_tpu/cli/kmerset_multiple_compress.py, plus --device
 (default cuda; a missing CUDA device is an error, never a quiet CPU run).
 Decoding and sampling the inputs, the pair weights and every deferred
 SPSS build's graph front-end run on the device; the set algebra, the
-chain walk, the path cover and the dumps are the reference's host code.
+chain walk, the path cover and the dumps run on the host, in the port's
+copy of the reference's code.
 The directory and the DOT file are byte-identical to the reference's for
 the same inputs and seed.  There is no multi-process bring-up
 (multi-GPU is ROADMAP A.8).
@@ -15,22 +16,17 @@ the same inputs and seed.  There is no multi-process bring-up
 from __future__ import annotations
 
 import argparse
-import os
 import sys
 from concurrent.futures import ThreadPoolExecutor
 
-from kmerset_tpu.core.config import get_config
-from kmerset_tpu.utils.log import enable_debug_logs, init_default_logger
-
+from ..core.config import get_config
 from ..core.kmer_set_compact import KmerSetCompact
 from ..core.kmer_set_set import KmerSetSet
 from ..utils import flags as flag_util
+from ..utils.log import enable_debug_logs, init_default_logger
 
 
 def main(argv=None) -> None:
-    # See cli/kmerset_build.py: pins the reused host code to its host arms.
-    os.environ["KMERSET_TPU_FORCE_BACKEND"] = "host"
-
     parser = argparse.ArgumentParser(
         description=(
             "Compresses multiple k-mer sets. Usage: kmerset-multiple-compress "

@@ -11,20 +11,15 @@ decode runs on the device (kernels B1/B2 and B3).
 from __future__ import annotations
 
 import argparse
-import os
 import sys
 
-from kmerset_tpu.core.config import get_config
-from kmerset_tpu.utils.log import enable_debug_logs, init_default_logger
-
+from ..core.config import get_config
 from ..core.kmer_set_set import KmerSetSetReader
 from ..utils import flags as flag_util
+from ..utils.log import enable_debug_logs, init_default_logger
 
 
 def main(argv=None) -> None:
-    # See cli/kmerset_build.py: pins the reused host code to its host arms.
-    os.environ["KMERSET_TPU_FORCE_BACKEND"] = "host"
-
     parser = argparse.ArgumentParser(
         description=(
             'Decompresses the output of "kmerset-multiple-compress". '

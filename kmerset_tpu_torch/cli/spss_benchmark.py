@@ -5,31 +5,25 @@
 Same flags, output and log lines as kmerset_tpu/cli/spss_benchmark.py,
 plus --device (default cuda; a missing CUDA device is an error, never a
 quiet CPU run).  The input's decode, the unitigs' graph front-end and each
-reconstruction run on the device; the path cover of both modes is the
-reference's host code, so the weight and ok columns equal the
-reference's, and the times are this device's.
+reconstruction run on the device; the path cover of both modes runs on
+the host, in the port's copy of the reference's code, so the weight and
+ok columns equal the reference's, and the times are this device's.
 """
 
 from __future__ import annotations
 
 import argparse
-import os
 import sys
 import time
 
-from kmerset_tpu.core.config import get_config
-from kmerset_tpu.core.spss import get_spss_canonical_from_unitigs
-from kmerset_tpu.utils.log import enable_debug_logs, init_default_logger
-
 from ..core import spss as spss_mod
+from ..core.config import get_config
 from ..core.kmer_set_compact import KmerSetCompact
 from ..utils import flags as flag_util
+from ..utils.log import enable_debug_logs, init_default_logger
 
 
 def main(argv=None) -> None:
-    # See cli/kmerset_build.py: pins the reused host code to its host arms.
-    os.environ["KMERSET_TPU_FORCE_BACKEND"] = "host"
-
     parser = argparse.ArgumentParser(
         description=(
             "Runs a benchmark for SPSS construction using a single k-mer "
@@ -84,7 +78,7 @@ def main(argv=None) -> None:
                 logger.info("fast = %s", fast)
 
                 t0 = time.monotonic()
-                spss = get_spss_canonical_from_unitigs(unitigs, cfg.k, fast)
+                spss = spss_mod.get_spss_canonical_from_unitigs(unitigs, cfg.k, fast)
                 elapsed = time.monotonic() - t0
                 logger.info("constructed spss: elapsed = %f", elapsed)
                 out.append(f"{elapsed}")

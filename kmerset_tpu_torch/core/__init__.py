@@ -1,2 +1,4 @@
-"""Editions of the reference's core entry points that route their device
-work through the port (kmer_counter, spss decode, kmer_set_compact)."""
+"""The port's host layer and its device-routed entry points: copies of the
+reference's host modules (kmer, config, arrays, kmer_set, strings, io,
+native, graph, the host half of spss) and the port's own counter, compact
+set, multi-set and SPSS build and decode on a device."""

@@ -1,0 +1,97 @@
+"""2-bit packed k-mer codec, vectorized over numpy arrays.
+
+The port's copy of the parts of kmerset_tpu/core/kmer.py that the port
+reaches (the tables, reverse_complement, canonical, next_kmer, prev_kmer
+and codes_from_kmer, :21-95, 143-147), without the jax.numpy branch of
+canonical (:74-76): the port's codec runs on numpy only; its device code
+has its own shifts (ops/pack.py, ops/neighbors.py).
+
+A k-mer of length k is packed into the low 2k bits of an int64: 'A', 'C',
+'G', 'T' map to 0, 1, 2, 3 and the *first* base occupies the most
+significant 2-bit lane (reference: lib/core/kmer.h:12-46).
+
+Unlike the reference's per-base scalar loops (e.g. the reverse complement
+loop, reference: lib/core/kmer.h:103-129), everything here is closed-form
+bit arithmetic over whole arrays.
+
+k <= 31 fits in a signed int64 (62 bits).  All functions accept and return
+int64 arrays (or scalars).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+# Lane-reversal masks (also correct for signed int64: every shift-right is
+# immediately masked so sign-extension bits never survive).
+_M2 = 0x3333333333333333
+_M4 = 0x0F0F0F0F0F0F0F0F
+_M8 = 0x00FF00FF00FF00FF
+_M16 = 0x0000FFFF0000FFFF
+_M32 = 0x00000000FFFFFFFF
+
+# ASCII -> 2-bit code; 255 marks invalid, 254 marks 'N' (fragment separator).
+BASE_TO_CODE = np.full(256, 255, dtype=np.uint8)
+for _i, _b in enumerate(b"ACGT"):
+    BASE_TO_CODE[_b] = _i
+BASE_TO_CODE[ord("N")] = 254
+
+CODE_TO_BASE = np.frombuffer(b"ACGT", dtype=np.uint8)
+
+
+def mask(bits: int) -> int:
+    return (1 << bits) - 1
+
+
+_NATIVE_MIN = 1 << 16
+
+
+def reverse_complement(kmers, k: int):
+    """Reverse complement of packed k-mers (reference: lib/core/kmer.h:97-129).
+
+    Complements every 2-bit lane (b -> 3-b == ~b) and reverses lane order,
+    in five shuffle rounds instead of a k-step loop.  Large host arrays
+    take the single-pass native path (native/kmerio.c kmerio_revcomp).
+    """
+    if isinstance(kmers, np.ndarray) and kmers.size >= _NATIVE_MIN:
+        from . import native
+
+        out = native.revcomp(kmers, k)
+        if out is not None:
+            return out
+    x = ~kmers
+    x = ((x >> 2) & _M2) | ((x & _M2) << 2)
+    x = ((x >> 4) & _M4) | ((x & _M4) << 4)
+    x = ((x >> 8) & _M8) | ((x & _M8) << 8)
+    x = ((x >> 16) & _M16) | ((x & _M16) << 16)
+    x = ((x >> 32) & _M32) | ((x & _M32) << 32)
+    return (x >> (64 - 2 * k)) & mask(2 * k)
+
+
+def canonical(kmers, k: int):
+    """min(kmer, reverse_complement(kmer)) (reference: lib/core/kmer.h:131-133)."""
+    return np.minimum(kmers, reverse_complement(kmers, k))
+
+
+def _widen(code):
+    """Promote narrow integer codes to int64 so shifts don't overflow."""
+    if isinstance(code, int):
+        return code
+    return np.asarray(code, dtype=np.int64)
+
+
+def next_kmer(kmers, k: int, code):
+    """(K-1)-suffix + new base `code` (reference: lib/core/kmer.h:135-161)."""
+    return ((kmers << 2) & mask(2 * k)) | _widen(code)
+
+
+def prev_kmer(kmers, k: int, code):
+    """New base `code` + (K-1)-prefix (reference: lib/core/kmer.h:163-186)."""
+    return (kmers >> 2) | (_widen(code) << (2 * (k - 1)))
+
+
+def codes_from_kmer(kmers: np.ndarray, k: int) -> np.ndarray:
+    """Unpack k-mers to per-base codes, shape (..., k), first base first."""
+    kmers = np.asarray(kmers, dtype=np.int64)
+    shifts = np.arange(k - 1, -1, -1, dtype=np.int64) * 2
+    return (kmers[..., None] >> shifts) & 3

@@ -1,38 +1,53 @@
-"""KmerCounter on an explicit torch device.
+"""KmerCounter on an explicit torch device: sort-based k-mer counting.
 
-Subclass of kmerset_tpu.core.kmer_counter.KmerCounter.  Its construction
-editions send every non-empty input to the port's device count on the
-counter's device: in one shot (ops/backend.device_count) up to the
-device's one-shot ceiling (backend.window_ceiling), in halo chunks merged
-on the host (backend.device_count_chunked) above it.  There is no size
-threshold, mesh or host fallback.  Everything after counting
-(saturating counts, the cutoff filter of to_kmer_set, queries) is the
-reference's own code.
+The port's own class, with the reference's base class
+(kmerset_tpu/core/kmer_counter.py:57-343) folded in as far as the port
+reaches it: construction, saturating counts and the cutoff filter of
+to_kmer_set (:315-343).  Its construction sends every non-empty input to
+the port's device count on the counter's device: in one shot
+(ops/backend.device_count) up to the device's one-shot ceiling
+(backend.window_ceiling), in halo chunks merged on the host
+(backend.device_count_chunked) above it.  There is no size threshold,
+mesh or host fallback, so none of the reference's deferred counts
+transfer, host recount or resident handle (:72-137) is carried over, nor
+its incremental adds (:280-313), which no CLI calls.
+
+Counts saturate at value_max like the reference's AddWithMax with its
+uint8 default ValueType (reference: lib/core/kmer_counter.h:28-38,48).
 """
 
 from __future__ import annotations
 
-from typing import List
+from typing import List, Tuple
 
 import numpy as np
 
-from kmerset_tpu.core import io as core_io
-from kmerset_tpu.core import kmer_counter as ref
-from kmerset_tpu.core import native
-
 from .. import resolve_device
 from ..ops import backend
+from . import io as core_io
+from . import native
+from .kmer_set import KmerSet
 
-DEFAULT_VALUE_MAX = ref.DEFAULT_VALUE_MAX
+DEFAULT_VALUE_MAX = 255  # uint8 ValueType default (reference: kmer_counter.h:48)
 
 
-class KmerCounter(ref.KmerCounter):
+class KmerCounter:
+    """Sorted distinct k-mers with saturating counts, counted on a
+    device."""
+
     def __init__(
         self, k: int, kmers: np.ndarray | None = None,
         counts: np.ndarray | None = None,
         value_max: int = DEFAULT_VALUE_MAX, *, device,
     ):
-        super().__init__(k, kmers, counts, value_max)
+        self.k = k
+        self.value_max = value_max
+        self.kmers = (
+            np.asarray(kmers, dtype=np.int64) if kmers is not None else np.empty(0, np.int64)
+        )
+        self.counts = (
+            np.asarray(counts, dtype=np.int64) if counts is not None else np.empty(0, np.int64)
+        )
         self.device = resolve_device(device)
 
     @classmethod
@@ -96,3 +111,13 @@ class KmerCounter(ref.KmerCounter):
         return cls(
             k, uniq, np.minimum(counts, value_max), value_max, device=device
         )
+
+    def to_kmer_set(self, cutoff: int) -> Tuple[KmerSet, int]:
+        """Filters out k-mers with count < cutoff; returns (set, n_cut)
+        (reference: lib/core/kmer_counter.h:211-243)."""
+        if cutoff <= 1:
+            # Nothing to filter: reuse the sorted array.
+            return KmerSet(self.k, self.kmers, _sorted=True), 0
+        keep = self.counts >= cutoff
+        n_cut = int(np.count_nonzero(~keep))
+        return KmerSet(self.k, self.kmers[keep], _sorted=True), n_cut

@@ -1,19 +1,25 @@
-"""KmerSetSet and KmerSetSetReader on an explicit torch device.
+"""KmerSetSet and KmerSetSetReader on an explicit torch device: joint
+compression of many related k-mer sets.
 
-Subclasses of kmerset_tpu.core.kmer_set_set's two classes.  Every set
-they hold or load is the port's KmerSetCompact on their device, so each
-decode runs the device count pipeline (kernels B1/B2 and B3) and each
-deferred SPSS build runs the device graph front-end.  The pair weights
-of the greedy loop come from the port's DeviceSketchTable on the same
-device, always: the reference's oracle choice (_make_weight_oracle,
-:145-177) with its mesh and size gates and its quiet host fallback is
-not carried over.  The set algebra (native sorted merges, or numpy), the
-heap, the stopping rule, the adjacency-list format and the DOT and
-directory dumps are the reference's.
+The port's own classes, with the reference's
+(kmerset_tpu/core/kmer_set_set.py:219-565) folded in, and its copies of
+the helpers they use: reachable_ids, AdjacencyList, _pop_best_pair,
+_parallel_map and the adjacency-list (de)serializers (:39-77, 180-216).
+The greedy loop repeatedly factors the intersection of the most similar
+pair of sets into a new shared child set, recording the parent->child
+DAG, so each original set is the union of its residual and every
+reachable descendant (reference: lib/core/kmer_set_set.h:89-775).
 
-_compress (:247-380) hard-wires the reference's compact class and oracle,
-so it is repeated here line for line with the reference's helpers;
-load (:435-460) and the Reader's loads (:504-565) likewise.
+Every set they hold or load is the port's KmerSetCompact on their
+device, so each decode runs the device count pipeline (kernels B1/B2 and
+B3) and each deferred SPSS build runs the device graph front-end.  The
+pair weights of the greedy loop come from the port's DeviceSketchTable on
+the same device, always: the reference's oracle choice
+(_make_weight_oracle, :80-177) with its mesh and host routers is not
+carried over.  The set algebra (native sorted merges, or numpy), the
+heap, the stopping rule, the seeded bucket sample, the adjacency-list
+format and the DOT and directory dumps are the reference's, so the
+directories are byte-identical to its.
 """
 
 from __future__ import annotations
@@ -22,30 +28,95 @@ import heapq
 import logging
 import os
 import time
+from collections import deque
+from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, List, Tuple
 
 import numpy as np
 
-from kmerset_tpu.core import io as core_io
-from kmerset_tpu.core import kmer_set_set as ref
-from kmerset_tpu.core import native
-from kmerset_tpu.core.arrays import sorted_unique
-from kmerset_tpu.core.config import KConfig
-from kmerset_tpu.core.kmer_set import KmerSet
-from kmerset_tpu.core.kmer_set_set import (
-    AdjacencyList,
-    _parallel_map,
-    _pop_best_pair,
-    deserialize_adjacency_list,
-    reachable_ids,
-)
-from kmerset_tpu.utils.random import get_random_ints
-
 from .. import resolve_device
 from ..ops.sketch import DeviceSketchTable
+from ..utils.random import get_random_ints
+from . import io as core_io
+from . import native
+from .arrays import sorted_unique
+from .config import KConfig
+from .kmer_set import KmerSet
 from .kmer_set_compact import KmerSetCompact
 
 logger = logging.getLogger("kmerset")
+
+AdjacencyList = Dict[int, List[int]]
+
+
+def reachable_ids(children: AdjacencyList, i: int) -> List[int]:
+    """BFS over the children DAG from i, in first-seen order — the
+    reconstruction set walk shared by KmerSetSet.get and the Reader
+    (reference: lib/core/kmer_set_set.h:433-454, 672-694)."""
+    ids: List[int] = []
+    seen = set()
+    queue = deque([i])
+    while queue:
+        cur = queue.popleft()
+        if cur in seen:
+            continue
+        seen.add(cur)
+        ids.append(cur)
+        queue.extend(children.get(cur, []))
+    return ids
+
+
+def _pop_best_pair(heap, weights):
+    """Max-weight pair via the lazy-deletion heap: pops entries until one
+    matches the live `weights` value (stale entries — superseded updates —
+    are discarded), returning None when the max weight is 0 (the greedy
+    loop's termination, reference: lib/core/kmer_set_set.h:318-322).  The
+    (-w, pair) order makes ties break on the smallest pair, exactly the
+    full-scan argmax the reference computes each round
+    (lib/core/kmer_set_set.h:308-316)."""
+    while heap:
+        negw, pair = heapq.heappop(heap)
+        if weights.get(pair) == -negw:
+            if negw < 0:  # all-zero weights end the loop
+                return pair
+            break
+    return None
+
+
+def _parallel_map(fn, items, workers: int) -> list:
+    """ex.map-or-sequential over independent items — the one-task-per-
+    item pool shape the reference uses for its file/build fan-outs
+    (kmer_set_set.h:494-528,583-607,704-745).  Results in item order;
+    the first exception propagates either way."""
+    items = list(items)
+    if workers > 1 and len(items) > 1:
+        with ThreadPoolExecutor(max_workers=workers) as ex:
+            return list(ex.map(fn, items))
+    return [fn(it) for it in items]
+
+
+def serialize_adjacency_list(adj: AdjacencyList) -> str:
+    """Exact reference format: "size key count children ..."
+    (reference: kmer_set_set.h:45-56), keys in sorted order."""
+    parts = [str(len(adj))]
+    for key in sorted(adj):
+        parts.append(str(key))
+        parts.append(str(len(adj[key])))
+        parts.extend(str(v) for v in adj[key])
+    return " ".join(parts)
+
+
+def deserialize_adjacency_list(s: str) -> AdjacencyList:
+    """Inverse (reference: kmer_set_set.h:58-85)."""
+    tokens = s.split()
+    it = iter(tokens)
+    size = int(next(it))
+    adj: AdjacencyList = {}
+    for _ in range(size):
+        key = int(next(it))
+        count = int(next(it))
+        adj[key] = [int(next(it)) for _ in range(count)]
+    return adj
 
 
 def _check_compacts(sets: List[KmerSetCompact]) -> None:
@@ -57,7 +128,7 @@ def _check_compacts(sets: List[KmerSetCompact]) -> None:
             )
 
 
-class KmerSetSet(ref.KmerSetSet):
+class KmerSetSet:
     def __init__(
         self,
         kmer_sets_compact: List[KmerSetCompact],
@@ -70,13 +141,20 @@ class KmerSetSet(ref.KmerSetSet):
         device,
     ):
         """As the reference's (workers > 1 runs the stopping rule's
-        deferred SPSS builds in a thread pool); the greedy loop's pair
-        weights and the new sets' builds run on `device`."""
+        deferred SPSS builds in a thread pool, kmer_set_set.py:220-243);
+        the greedy loop's pair weights and the new sets' builds run on
+        `device`."""
         self.device = resolve_device(device)
         _check_compacts(kmer_sets_compact)
-        super().__init__(
-            kmer_sets_compact, canonical, config, seed, workers, _children
-        )
+        self.config = config
+        self.canonical = canonical
+        if _children is not None:
+            self.children_: AdjacencyList = _children
+            self.kmer_sets_compact_ = kmer_sets_compact
+            return
+        self.children_ = {}
+        self.kmer_sets_compact_ = list(kmer_sets_compact)
+        self._compress(canonical, seed, workers)
 
     def _compress(self, canonical: bool, seed: int, workers: int = 1) -> None:
         cfg = self.config
@@ -201,6 +279,50 @@ class KmerSetSet(ref.KmerSetSet):
             "%d rows)", self.device, oracle_s, n_weighed, oracle.n,
         )
 
+    # -- queries (reference: kmer_set_set.py:390-397) ---------------------
+
+    def get(self, i: int, canonical: bool) -> KmerSet:
+        """Original set = residual union all reachable shared children."""
+        parts = [
+            self.kmer_sets_compact_[j].kmers(canonical)
+            for j in reachable_ids(self.children_, i)
+        ]
+        return KmerSet(self.config.k, sorted_unique(np.concatenate(parts)), _sorted=True)
+
+    # -- persistence (reference: kmer_set_set.py:401-460) ------------------
+
+    def dump(
+        self, directory: str, compressor: str, extension: str,
+        workers: int = 1,
+    ) -> None:
+        """Writes meta + one file per compact set; with workers > 1 the
+        per-set dumps run as parallel tasks like the reference's
+        one-task-per-file pool (reference: kmer_set_set.h:494-528)."""
+        os.makedirs(directory, exist_ok=True)
+        meta = [
+            serialize_adjacency_list(self.children_),
+            str(len(self.kmer_sets_compact_)),
+        ]
+        core_io.write_lines(
+            os.path.join(directory, f"meta.{extension}"), compressor, meta
+        )
+
+        def _dump_one(i: int) -> None:
+            self.kmer_sets_compact_[i].dump(
+                os.path.join(directory, f"{i}.{extension}"), compressor
+            )
+
+        _parallel_map(_dump_one, range(len(self.kmer_sets_compact_)), workers)
+
+    def dump_graph(self, file_name: str) -> None:
+        """DOT format (reference: kmer_set_set.h:532-547)."""
+        lines = ["digraph G {"]
+        for key in sorted(self.children_):
+            for child in self.children_[key]:
+                lines.append(f"v{key} -> v{child}")
+        lines.append("}")
+        core_io.write_lines(file_name, "", lines)
+
     @classmethod
     def load(
         cls,
@@ -213,8 +335,8 @@ class KmerSetSet(ref.KmerSetSet):
         *,
         device,
     ) -> "KmerSetSet":
-        """The reference's load (:435-460) of port compacts on
-        `device`."""
+        """The reference's load (:435-460) of port compacts on `device`;
+        workers > 1 loads the per-set files as parallel tasks."""
         meta = core_io.read_lines(
             os.path.join(directory, f"meta.{extension}"), decompressor
         )
@@ -231,7 +353,7 @@ class KmerSetSet(ref.KmerSetSet):
         return cls(sets, canonical, config, _children=children, device=device)
 
 
-class KmerSetSetReader(ref.KmerSetSetReader):
+class KmerSetSetReader:
     """The reference's Reader (:463-565): reads meta only and loads the
     files reachable from a requested set, as port compacts decoded on
     `device`."""
@@ -248,10 +370,13 @@ class KmerSetSetReader(ref.KmerSetSetReader):
         *,
         device,
     ):
-        super().__init__(
-            config, directory, extension, decompressor, canonical, children,
-            size,
-        )
+        self.config = config
+        self.directory = directory
+        self.extension = extension
+        self.decompressor = decompressor
+        self.canonical = canonical
+        self.children_ = children
+        self._size = size
         self.device = resolve_device(device)
 
     @classmethod
@@ -272,6 +397,9 @@ class KmerSetSetReader(ref.KmerSetSetReader):
             config, directory, extension, decompressor, canonical,
             deserialize_adjacency_list(meta[0]), int(meta[1]), device=device,
         )
+
+    def size(self) -> int:
+        return self._size
 
     def _load(self, idx: int) -> np.ndarray:
         s = KmerSetCompact.load(

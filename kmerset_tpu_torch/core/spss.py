@@ -1,48 +1,294 @@
-"""SPSS build and decode on an explicit torch device.
+"""SPSS construction and decode: the port's unitig graph front-end on an
+explicit torch device, and its own copy of the reference's host half.
 
-Editions of kmerset_tpu.core.spss:
+The port's copy of kmerset_tpu/core/spss.py, function by function, with
+every mesh router and every multi-device branch left out (the port has no
+mesh yet, ROADMAP A.8), and with the native library reached through the
+port's own bindings (core/native.py):
+- the chain machinery: _phase, _keep_rule, _chains_grouped,
+  _group_endpoints, _oriented_kmers, _emit_kmer_chains, _walk_cycles and
+  _concat_packed (reference spss.py:55-62, 175-322, 459-522);
+- the greedy path cover: _candidate_port_edges_canonical,
+  _dedup_port_edges, _break_cycles, _emit_string_chains, _take_strings,
+  _emit_matched_paths, get_spss_canonical_from_unitigs and
+  _sequential_matching (:778-859, 887-1048, 1132-1171);
+- the directed build, all on the host as the reference builds it under
+  its host pin: get_unitigs (:733-770, its side tables from the native
+  library or the numpy _side_table_plain, :69-119, 151-167),
+  _candidate_edges_directed, get_spss_from_unitigs and get_spss
+  (:862-884, 1051-1079).
+The mesh-only helpers (_mesh_*, _kept_native_order, :324-456, 530-556)
+are not copied.
+
+The port's own editions:
 - get_unitigs_canonical (:559-730): the front half (side tables, terminal
   tests, oriented successor, :580-652) is one call of the port's device
   front-end (ops/unitigs.device_unitig_succ); the chain walk and string
-  emission half (:653-730) is written inline in the reference, so it is
-  repeated here line for line with the reference's own helpers, without
+  emission half (:653-730) follows the reference line for line, without
   the mesh branch (:667-684).  The native walk and its numpy fallback
   stay in the reference's order, so the port takes the same branch as
   the reference in the same environment (group order differs between
-  the two, spss.py:200-202).
-- get_spss_canonical (:1082-1084), which then calls the reference's
-  get_spss_canonical_from_unitigs as it is;
+  the two, spss.py:200-202);
+- get_spss_canonical (:1082-1084);
 - decode_unique_kmers (:1087-1118) and get_kmer_set_from_spss
   (:1121-1124), which decode through the port's device_unique, or in
   halo chunks (device_unique_chunked) above the device's one-shot
   ceiling.
-The directed build (get_spss) stays the reference's host code.
+
+Citations of the form "reference: lib/core/spss.h" point to the original
+C++ project, as they do in kmerset_tpu.
 """
 
 from __future__ import annotations
 
-from typing import List
+import logging
+import time
+from contextlib import contextmanager
+from typing import List, Tuple
 
 import numpy as np
 
-from kmerset_tpu.core import kmer as kmer_ops
-from kmerset_tpu.core import native
-from kmerset_tpu.core.kmer_set import KmerSet
-from kmerset_tpu.core.spss import (
-    _chains_grouped,
-    _concat_packed,
-    _emit_kmer_chains,
-    _filter_groups,
-    _group_endpoints,
-    _keep_rule,
-    _phase,
-    _walk_cycles,
-    get_spss_canonical_from_unitigs,
-)
-from kmerset_tpu.core.strings import PackedStrings
-
 from ..ops import backend
 from ..ops.unitigs import device_unitig_succ
+from . import kmer as kmer_ops
+from . import native
+from .graph import (
+    expand_ranges,
+    filter_groups as _filter_groups,
+    handshake_matching,
+    pointer_double,
+)
+from .kmer_set import KmerSet
+from .strings import PackedStrings
+
+logger = logging.getLogger("kmerset")
+
+
+@contextmanager
+def _phase(name: str):
+    """Debug-level phase timing, mirroring the reference's debug-log
+    narration of algorithm phases (reference: lib/core/spss.h:315-353)."""
+    t0 = time.perf_counter()
+    yield
+    logger.debug("%s: %.2fs", name, time.perf_counter() - t0)
+
+
+# ---------------------------------------------------------------------------
+# Directed side tables (host)
+# ---------------------------------------------------------------------------
+
+
+def _lookup(A: np.ndarray, q: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """(found, index) of queries in sorted-unique A."""
+    if A.shape[0] == 0:
+        return np.zeros(q.shape, bool), np.zeros(q.shape, np.int64)
+    idx = np.searchsorted(A, q)
+    idx_c = np.minimum(idx, A.shape[0] - 1)
+    found = A[idx_c] == q
+    return found, idx_c
+
+
+def _side_table_plain(A: np.ndarray, k: int, right: bool):
+    """Directed-graph degree / unique-neighbor tables
+    (reference: lib/core/spss.h:76-94)."""
+    n = A.shape[0]
+    deg = np.zeros(n, dtype=np.int64)
+    nbr = np.zeros(n, dtype=np.int64)
+    for c in range(4):
+        cand = kmer_ops.next_kmer(A, k, c) if right else kmer_ops.prev_kmer(A, k, c)
+        found, idx = _lookup(A, cand)
+        found &= cand != A
+        first = found & (deg == 0)
+        nbr = np.where(first, idx, nbr)
+        deg += found
+    return deg, nbr
+
+
+def _side_tables_directed(A: np.ndarray, k: int):
+    """Directed-graph side tables ((outdeg, next), (indeg, prev)): the
+    native library's, else the numpy _side_table_plain (the host arm of
+    the reference's _side_tables, spss.py:151-167)."""
+    res = native.side_tables_directed(A, k)
+    if res is not None:
+        return res
+    return _side_table_plain(A, k, right=True), _side_table_plain(A, k, right=False)
+
+
+# ---------------------------------------------------------------------------
+# Chain machinery (shared by the k-mer level and the unitig level)
+# ---------------------------------------------------------------------------
+
+
+def _entity_flip(nodes: np.ndarray, oriented: bool) -> Tuple[np.ndarray, np.ndarray]:
+    if oriented:
+        return nodes >> 1, (nodes & 1).astype(bool)
+    return nodes, np.zeros(nodes.shape, dtype=bool)
+
+
+def _keep_rule(A: np.ndarray, firsts, lasts):
+    """The reference's canonical orientation tie-break: keep the chain
+    whose start k-mer is >= its end k-mer (lib/core/spss.h:511,555).
+    ONE definition for the native-callback and numpy-fallback paths (and
+    the reference's mesh paths) — the byte-parity of every backend hangs
+    on the sites applying the identical predicate.  Works elementwise on arrays and
+    on scalar node ids."""
+    return A[firsts >> 1] >= A[lasts >> 1]
+
+
+def _chains_grouped(
+    succ: np.ndarray, starts: np.ndarray, oriented: bool = False
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Groups the nodes of the chains led by `starts` contiguously in
+    (chain, position) order; returns (nodes, group_starts).
+
+    Native path: a sequential C pointer chase, O(total chain length)
+    (native/kmerio.c kmerio_chain_walk — the data-parallel equivalent of
+    the reference's threaded walks, lib/core/spss.h:394-423).  Fallback:
+    pointer doubling + lexsort (log-depth, used when the native library is
+    unbuilt).  Group order may differ between the two paths; both are
+    valid chain groupings of the same chains.  `oriented` marks a
+    2-nodes-per-entity succ; only the reference's multi-device gate reads
+    it, which the port does not have.
+    """
+    if starts.size == 0:
+        return np.empty(0, np.int64), np.zeros(1, np.int64)
+    res = native.chain_walk(succ, starts)
+    if res is not None:
+        return res
+    end, dist, is_chain, _ = pointer_double(succ)
+    keep_end = np.zeros(succ.shape[0], dtype=bool)
+    keep_end[end[starts]] = True
+    sel = np.flatnonzero(is_chain & keep_end[end])
+    if sel.size == 0:
+        return sel, np.zeros(1, np.int64)
+    order = np.lexsort((-dist[sel], end[sel]))
+    nodes_sorted = sel[order]
+    ends_sorted = end[nodes_sorted]
+    boundaries = np.flatnonzero(np.diff(ends_sorted)) + 1
+    group_starts = np.concatenate(
+        ([0], boundaries, [nodes_sorted.shape[0]])
+    ).astype(np.int64)
+    return nodes_sorted, group_starts
+
+
+def _group_endpoints(
+    nodes: np.ndarray, groups: np.ndarray
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """(first, last, nonempty) node of every chain group; first/last are 0
+    where a group is empty."""
+    counts = np.diff(groups)
+    nonempty = counts > 0
+    lo = np.where(nonempty, groups[:-1], 0)
+    hi = np.where(nonempty, groups[1:] - 1, 0)
+    return nodes[lo], nodes[hi], nonempty
+
+
+def _oriented_kmers(A: np.ndarray, k: int, entity: np.ndarray, flip: np.ndarray) -> np.ndarray:
+    vals = A[entity]
+    rc = kmer_ops.reverse_complement(vals, k)
+    return np.where(flip, rc, vals)
+
+
+def _emit_kmer_chains(
+    A: np.ndarray,
+    k: int,
+    nodes_sorted: np.ndarray,
+    group_starts: np.ndarray,
+    oriented: bool,
+) -> PackedStrings:
+    """Builds unitig strings from chain-grouped nodes: the first node of a
+    chain contributes k bases, every following node one base
+    (reference ConcatenateKmers, lib/core/spss.h:25-41)."""
+    n_chains = group_starts.shape[0] - 1
+    if nodes_sorted.size == 0:
+        return PackedStrings.empty()
+    res = native.emit_kmer_chains(A, k, nodes_sorted, group_starts, oriented)
+    if res is not None:
+        return PackedStrings(res[0], res[1])
+    counts = np.diff(group_starts)
+    nonempty = counts > 0
+    # Empty groups emit length-0 strings, matching the native binding's
+    # documented contract (core/native.py emit_kmer_chains); the old
+    # unconditional counts + k - 1 gave an empty group k-1 garbage bytes.
+    str_lens = np.where(nonempty, counts + k - 1, 0)
+    offsets = np.zeros(n_chains + 1, dtype=np.int64)
+    np.cumsum(str_lens, out=offsets[1:])
+    codes = np.zeros(int(offsets[-1]), dtype=np.uint8)
+
+    entity, flip = _entity_flip(nodes_sorted, oriented)
+    ov = _oriented_kmers(A, k, entity, flip)
+    group_of = np.repeat(np.arange(n_chains, dtype=np.int64), counts)
+    t = np.arange(nodes_sorted.shape[0], dtype=np.int64) - group_starts[group_of]
+
+    first_vals = ov[group_starts[:-1][nonempty]]
+    codes_first = kmer_ops.codes_from_kmer(first_vals, k)  # (n_nonempty, k)
+    first_pos = offsets[:-1][nonempty, None] + np.arange(k)
+    codes[first_pos.ravel()] = codes_first.ravel().astype(np.uint8)
+
+    rest = t > 0
+    pos = offsets[group_of[rest]] + k - 1 + t[rest]
+    codes[pos] = (ov[rest] & 3).astype(np.uint8)
+    return PackedStrings(codes, offsets)
+
+
+def _walk_cycles(
+    A: np.ndarray, k: int, succ: np.ndarray, visited: np.ndarray, oriented: bool
+) -> PackedStrings:
+    """Sequential walk of leftover pure cycles, in ascending k-mer order,
+    stopping at the first already-visited k-mer (reference:
+    lib/core/spss.h:203-224,583-612).  Native one-pass C walk when the
+    library is built (all-cycle worst-case inputs — circular plasmids,
+    repeat-heavy genomes — run at chain-emission speed); the Python
+    per-k-mer loop below is the byte-identical fallback."""
+    if visited.all():
+        # Chains + isolated k-mers covered every entity, so no orbit
+        # exists and every backend would emit nothing — skip the scan.
+        return PackedStrings.empty()
+    res = native.walk_cycles(succ, A, k, oriented, visited)
+    if res is not None:
+        codes, offsets = res
+        return PackedStrings(codes, offsets)
+    out: List[np.ndarray] = []
+    for i0 in np.flatnonzero(~visited):
+        if visited[i0]:
+            continue
+        u = 2 * int(i0) if oriented else int(i0)
+        codes: List[int] = []
+        first = True
+        while True:
+            ent = (u >> 1) if oriented else u
+            if visited[ent]:
+                break
+            visited[ent] = True
+            val = int(A[ent])
+            if oriented and (u & 1):
+                val = int(kmer_ops.reverse_complement(np.int64(val), k))
+            if first:
+                codes.extend(int(x) for x in kmer_ops.codes_from_kmer(np.int64(val), k))
+                first = False
+            else:
+                codes.append(val & 3)
+            u = int(succ[u])
+        out.append(np.array(codes, dtype=np.uint8))
+    return PackedStrings.from_code_lists(out)
+
+
+def _concat_packed(parts: List[PackedStrings]) -> PackedStrings:
+    parts = [p for p in parts if len(p) > 0]
+    if not parts:
+        return PackedStrings.empty()
+    if len(parts) == 1:
+        return parts[0]
+    codes = np.concatenate([p.codes for p in parts])
+    lens = np.concatenate([p.lengths() for p in parts])
+    offsets = np.zeros(lens.shape[0] + 1, dtype=np.int64)
+    np.cumsum(lens, out=offsets[1:])
+    return PackedStrings(codes, offsets)
+
+
+# ---------------------------------------------------------------------------
+# Unitigs
+# ---------------------------------------------------------------------------
 
 
 def get_unitigs_canonical(kmer_set: KmerSet, *, device) -> PackedStrings:
@@ -117,6 +363,314 @@ def get_unitigs_canonical(kmer_set: KmerSet, *, device) -> PackedStrings:
     return _concat_packed(parts)
 
 
+def get_unitigs(kmer_set: KmerSet) -> PackedStrings:
+    """Maximal non-branching paths of the directed de Bruijn graph
+    (reference: lib/core/spss.h:74-227)."""
+    A = kmer_set.kmers
+    k = kmer_set.k
+    n = A.shape[0]
+    if n == 0:
+        return PackedStrings.empty()
+
+    (outdeg, nxt), (indeg, prv) = _side_tables_directed(A, k)
+
+    # Start/end tests (reference: lib/core/spss.h:96-146).
+    is_start = (indeg != 1) | (outdeg[prv] != 1)
+    is_end = (outdeg != 1) | (indeg[nxt] != 1)
+
+    succ = np.where(is_end, -1, nxt)
+    starts = np.flatnonzero(is_start)
+
+    nodes, groups = _chains_grouped(succ, starts)
+    chains = _emit_kmer_chains(A, k, nodes, groups, oriented=False)
+
+    visited = np.zeros(n, dtype=bool)
+    visited[nodes] = True
+    cycles = _walk_cycles(A, k, succ, visited, oriented=False)
+    return _concat_packed([chains, cycles])
+
+
+# ---------------------------------------------------------------------------
+# Greedy path cover over the unitig graph (SPSS proper)
+# ---------------------------------------------------------------------------
+
+
+def _candidate_port_edges_canonical(
+    unitigs: PackedStrings, k: int
+) -> Tuple[np.ndarray, np.ndarray]:
+    """All (k-1)-overlap port edges of the bidirected unitig graph.
+
+    Ports: 2i = right side of unitig i, 2i+1 = left side.  An edge between
+    ports p, q means the two sides can be glued with k-1 overlap
+    (reference GetEdgesRight/GetEdgesLeft, lib/core/spss.h:1057-1145).
+    The reference looks candidates up in hash multimaps of unitig
+    prefixes/suffixes (lib/core/spss.h:619-695); here it is a sorted join.
+    Returned deduplicated, ordered by first-discovery priority.
+    """
+    n = len(unitigs)
+    with _phase("spss: first/last kmers"):
+        P = unitigs.first_kmers(k)
+        S = unitigs.last_kmers(k)
+
+    with _phase("spss: overlap join"):
+        res = native.overlap_edges(P, S, k)
+    if res is not None:
+        a, b = res
+        with _phase("spss: edge dedup"):
+            return _dedup_port_edges(a, b, n)
+
+    p_order = np.argsort(P, kind="stable")
+    s_order = np.argsort(S, kind="stable")
+    P_sorted, S_sorted = P[p_order], S[s_order]
+
+    all_a: List[np.ndarray] = []
+    all_b: List[np.ndarray] = []
+
+    def _join(queries, sorted_vals, order, src_ports, dst_side_bit):
+        lo = np.searchsorted(sorted_vals, queries, side="left")
+        hi = np.searchsorted(sorted_vals, queries, side="right")
+        rows, idx = expand_ranges(lo, hi)
+        j = order[idx]
+        a = src_ports[rows]
+        b = 2 * j + dst_side_bit
+        ok = (a >> 1) != j
+        all_a.append(a[ok])
+        all_b.append(b[ok])
+
+    ar = np.arange(n, dtype=np.int64)
+    for c in range(4):
+        q = kmer_ops.next_kmer(S, k, c)
+        # right(i) -- left(j): suffix_next == prefix(j)
+        _join(q, P_sorted, p_order, 2 * ar, 1)
+        # right(i) -- right(j): revcomp(suffix_next) == suffix(j)
+        _join(kmer_ops.reverse_complement(q, k), S_sorted, s_order, 2 * ar, 0)
+    for c in range(4):
+        r = kmer_ops.prev_kmer(P, k, c)
+        # left(i) -- right(j): prefix_prev == suffix(j)
+        _join(r, S_sorted, s_order, 2 * ar + 1, 0)
+        # left(i) -- left(j): revcomp(prefix_prev) == prefix(j)
+        _join(kmer_ops.reverse_complement(r, k), P_sorted, p_order, 2 * ar + 1, 1)
+
+    a = np.concatenate(all_a) if all_a else np.empty(0, np.int64)
+    b = np.concatenate(all_b) if all_b else np.empty(0, np.int64)
+    return _dedup_port_edges(a, b, n)
+
+
+def _dedup_port_edges(
+    a: np.ndarray, b: np.ndarray, n: int
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Each undirected edge is discovered from both endpoints; keep the
+    first-priority occurrence.  Native one-pass hash dedup when built
+    (numpy unique-with-index costs a full sort + stable argsort:
+    measured 1.8-3.9 s at 6M edges vs ~0.4 s for the hash pass)."""
+    idx = native.dedup_edges(a, b)
+    if idx is not None:
+        return a[idx], b[idx]
+    key = np.minimum(a, b) * (2 * n) + np.maximum(a, b)
+    _, first_idx = np.unique(key, return_index=True)
+    first_idx.sort()
+    return a[first_idx], b[first_idx]
+
+
+def _candidate_edges_directed(
+    unitigs: PackedStrings, k: int
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Directed overlap edges i -> j (suffix(i).next == prefix(j), i != j),
+    in discovery order (reference GetEdgesOut, lib/core/spss.h:707-727)."""
+    P = unitigs.first_kmers(k)
+    S = unitigs.last_kmers(k)
+    p_order = np.argsort(P, kind="stable")
+    P_sorted = P[p_order]
+    outs: List[np.ndarray] = []
+    ins: List[np.ndarray] = []
+    for c in range(4):
+        q = kmer_ops.next_kmer(S, k, c)
+        lo = np.searchsorted(P_sorted, q, side="left")
+        hi = np.searchsorted(P_sorted, q, side="right")
+        rows, idx = expand_ranges(lo, hi)
+        j = p_order[idx]
+        ok = rows != j
+        outs.append(rows[ok])
+        ins.append(j[ok])
+    a = np.concatenate(outs) if outs else np.empty(0, np.int64)
+    b = np.concatenate(ins) if ins else np.empty(0, np.int64)
+    return a, b
+
+
+def _break_cycles(succ: np.ndarray, match: np.ndarray | None, oriented: bool) -> np.ndarray:
+    """Detects succ-cycles, elects the min-entity leader of each, and cuts
+    one edge so every component becomes a chain (replacing union-find
+    loop-removal, reference: lib/core/spss.h:877-933,1541-1647)."""
+    leaders = native.cycle_leaders(succ, oriented)
+    if leaders is not None:
+        # oriented cycles are discovered once per orientation with the
+        # same entity min — collapse mirrors like unique(mins[cyc]) does
+        leaders = np.unique(leaders)
+    if leaders is None:
+        ids = np.arange(succ.shape[0], dtype=np.int64)
+        labels = (ids >> 1) if oriented else ids
+        _, _, is_chain, mins = pointer_double(succ, labels)
+        cyc = ~is_chain
+        leaders = np.unique(mins[cyc]) if cyc.any() else np.empty(0, np.int64)
+    if leaders.size == 0:
+        return succ
+    succ = succ.copy()
+    if oriented:
+        # Cut the match at every leader's left port (reference removes
+        # edge_left of the group leader, lib/core/spss.h:1626-1643).  All
+        # writes are the constant -1, so the vectorized form is
+        # order-independent even if cut ports coincide.
+        a = 2 * leaders + 1
+        succ[a] = -1
+        succ[match[a]] = -1
+    else:
+        # Cut each leader's outgoing edge (reference:
+        # lib/core/spss.h:924-930).
+        succ[leaders] = -1
+    return succ
+
+
+def _emit_string_chains(
+    unitigs: PackedStrings,
+    k: int,
+    nodes_sorted: np.ndarray,
+    group_starts: np.ndarray,
+    oriented: bool,
+) -> PackedStrings:
+    """Concatenates oriented unitigs along each chain with (k-1)-overlap
+    elision (reference GetStringFromPath, lib/core/spss.h:1186-1206)."""
+    if nodes_sorted.size == 0:
+        return PackedStrings.empty()
+    res = native.emit_string_chains(
+        unitigs.codes, unitigs.offsets, k, nodes_sorted, group_starts, oriented
+    )
+    if res is not None:
+        return PackedStrings(res[0], res[1])
+    n_chains = group_starts.shape[0] - 1
+    counts = np.diff(group_starts)
+    entity, flip = _entity_flip(nodes_sorted, oriented)
+    ulens = unitigs.lengths()[entity]
+    group_of = np.repeat(np.arange(n_chains, dtype=np.int64), counts)
+    t = np.arange(nodes_sorted.shape[0], dtype=np.int64) - group_starts[group_of]
+    contrib = np.where(t == 0, ulens, ulens - (k - 1))
+
+    out_lens = np.zeros(n_chains, dtype=np.int64)
+    np.add.at(out_lens, group_of, contrib)
+    offsets = np.zeros(n_chains + 1, dtype=np.int64)
+    np.cumsum(out_lens, out=offsets[1:])
+
+    contrib_cum = np.cumsum(contrib) - contrib
+    chain_base = contrib_cum[group_starts[:-1]]
+    node_out_start = offsets[group_of] + (contrib_cum - chain_base[group_of])
+
+    total = int(offsets[-1])
+    node_of_char = np.repeat(np.arange(nodes_sorted.shape[0]), contrib)
+    within = np.arange(total, dtype=np.int64) - node_out_start[node_of_char]
+    skip = np.where(t[node_of_char] == 0, 0, k - 1)
+    src = within + skip
+    ent_c = entity[node_of_char]
+    fwd_idx = unitigs.offsets[ent_c] + src
+    rev_idx = unitigs.offsets[ent_c + 1] - 1 - src
+    use_rev = flip[node_of_char]
+    gather_idx = np.where(use_rev, rev_idx, fwd_idx)
+    vals = unitigs.codes[gather_idx].astype(np.int64)
+    vals = np.where(use_rev, 3 - vals, vals)
+    return PackedStrings(vals.astype(np.uint8), offsets)
+
+
+def _take_strings(ps: PackedStrings, idx: np.ndarray) -> PackedStrings:
+    if idx.size == 0:
+        return PackedStrings.empty()
+    lens = ps.lengths()[idx]
+    offsets = np.zeros(idx.size + 1, dtype=np.int64)
+    np.cumsum(lens, out=offsets[1:])
+    lo, hi = ps.offsets[idx], ps.offsets[idx + 1]
+    codes = native.gather_ranges(ps.codes, lo, hi)
+    if codes is None:
+        _, within = expand_ranges(lo, hi)
+        codes = ps.codes[within]
+    return PackedStrings(codes, offsets)
+
+
+def _emit_matched_paths(
+    unitigs: PackedStrings, k: int, succ: np.ndarray
+) -> PackedStrings:
+    """Emits all maximal paths of a bidirected matched graph, with the
+    start-index <= end-index dedup rule (reference:
+    lib/core/spss.h:1649-1831)."""
+    matched = succ >= 0
+    has_right = matched[0::2]
+    has_left = matched[1::2]
+    both_free = ~has_left & ~has_right
+    starts_r = np.flatnonzero(~has_left & has_right) * 2
+    starts_l = np.flatnonzero(~has_right & has_left) * 2 + 1
+    starts = np.concatenate([starts_r, starts_l])
+    nodes, groups = _chains_grouped(succ, starts, oriented=True)
+    firsts, lasts, nonempty = _group_endpoints(nodes, groups)
+    keep = nonempty & ((firsts >> 1) <= (lasts >> 1))
+    nodes_kept, groups_kept = _filter_groups(nodes, groups, keep)
+    chains = _emit_string_chains(unitigs, k, nodes_kept, groups_kept, oriented=True)
+    solo = _take_strings(unitigs, np.flatnonzero(both_free))
+    return _concat_packed([chains, solo])
+
+
+def get_spss_canonical_from_unitigs(
+    unitigs: PackedStrings, k: int, fast: bool = True
+) -> PackedStrings:
+    """Greedy path cover of the bidirected unitig graph
+    (reference: lib/core/spss.h:1039-1858)."""
+    n = len(unitigs)
+    if n == 0:
+        return PackedStrings.empty()
+    with _phase("spss: candidate overlap edges"):
+        pa, pb = _candidate_port_edges_canonical(unitigs, k)
+    with _phase("spss: greedy matching"):
+        if not fast:
+            match = _sequential_matching(n, pa, pb)
+        else:
+            match = handshake_matching(pa, pb, 2 * n)
+
+    # Exiting port u continues through the matched partner port and leaves
+    # by that node's other side: succ[u] = match[u] ^ 1.
+    succ = np.where(match >= 0, match ^ 1, -1)
+    if fast:
+        with _phase("spss: cycle breaking"):
+            succ = _break_cycles(succ, match, oriented=True)
+    with _phase("spss: path emission"):
+        return _emit_matched_paths(unitigs, k, succ)
+
+
+def get_spss_from_unitigs(unitigs: PackedStrings, k: int) -> PackedStrings:
+    """Greedy path cover of the directed unitig graph
+    (reference: lib/core/spss.h:697-1016)."""
+    n = len(unitigs)
+    if n == 0:
+        return PackedStrings.empty()
+    ea, eb = _candidate_edges_directed(unitigs, k)
+    # Ports: out-port of i = 2i, in-port of j = 2j+1; the matching enforces
+    # <=1 selected out- and in-edge per node (reference:
+    # lib/core/spss.h:796-817).
+    match = handshake_matching(2 * ea, 2 * eb + 1, 2 * n)
+    succ = np.where(match[0::2] >= 0, match[0::2] >> 1, -1)
+    succ = _break_cycles(succ, None, oriented=False)
+
+    has_in = np.zeros(n, dtype=bool)
+    has_in[succ[succ >= 0]] = True
+    starts = np.flatnonzero(~has_in)
+    nodes, groups = _chains_grouped(succ, starts)
+    return _emit_string_chains(unitigs, k, nodes, groups, oriented=False)
+
+
+# ---------------------------------------------------------------------------
+# Top-level entry points (reference: lib/core/spss.h:1018-1036,1834-1858)
+# ---------------------------------------------------------------------------
+
+
+def get_spss(kmer_set: KmerSet) -> PackedStrings:
+    unitigs = get_unitigs(kmer_set)
+    return get_spss_from_unitigs(unitigs, kmer_set.k)
+
+
 def get_spss_canonical(
     kmer_set: KmerSet, fast: bool = True, *, device
 ) -> PackedStrings:
@@ -148,3 +702,50 @@ def get_kmer_set_from_spss(
     return KmerSet(
         k, decode_unique_kmers(spss, k, canonical, device=device), _sorted=True
     )
+
+
+# ---------------------------------------------------------------------------
+# Sequential reference-quality matching (fast=false) for spss-benchmark
+# ---------------------------------------------------------------------------
+
+
+def _sequential_matching(n: int, pa: np.ndarray, pb: np.ndarray) -> np.ndarray:
+    """Single-threaded greedy path extension, the reference's
+    higher-quality mode (reference: lib/core/spss.h:1208-1356).  Exists for
+    the spss-benchmark A/B comparison; native one-pass C when available
+    (the Python loop below is its byte-identical specification)."""
+    nm = native.seq_match(pa, pb, n)
+    if nm is not None:
+        return nm
+    adj: List[List[int]] = [[] for _ in range(2 * n)]
+    for a, b in zip(pa.tolist(), pb.tolist()):
+        adj[a].append(b)
+        adj[b].append(a)
+    match = np.full(2 * n, -1, dtype=np.int64)
+
+    for i in range(n):
+        if match[2 * i] >= 0 or match[2 * i + 1] >= 0:
+            continue
+        if adj[2 * i]:
+            port = 2 * i
+        elif adj[2 * i + 1]:
+            port = 2 * i + 1
+        else:
+            continue
+        while True:
+            if match[port] >= 0:
+                break
+            nxt = -1
+            for q in adj[port]:
+                if (q >> 1) == i:  # would close a loop with the path start
+                    continue
+                if match[q] >= 0:
+                    continue
+                nxt = q
+                break
+            if nxt < 0:
+                break
+            match[port] = nxt
+            match[nxt] = port
+            port = nxt ^ 1
+    return match

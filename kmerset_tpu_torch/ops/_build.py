@@ -1,9 +1,10 @@
 """Builds the port's CUDA kernels (`kmerset_tpu_torch/csrc/*.cu`) at first
 use and loads them with ctypes.
 
-One `nvcc` call compiles every source for Hopper (`sm_90a`) into a shared
-library with a plain C interface; no PyTorch header is included, so the
-build takes seconds.  The library lands in `build/kmerset_tpu_torch/` at
+One `nvcc` per source compiles it for Hopper (`sm_90a`), all started
+together, and one more links the objects into a shared library with a
+plain C interface; no PyTorch header is included, so the build takes
+seconds.  The library lands in `build/kmerset_tpu_torch/` at
 the root of the checkout (git-ignored), named by a hash of the sources and
 flags, so an edited kernel is rebuilt and an unchanged one is reused.  A
 file lock serialises concurrent builds.
@@ -28,7 +29,7 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kmerset_tpu_torch")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 ]
 
@@ -76,18 +77,47 @@ def _compile(out: str) -> None:
         if os.path.isfile(out):  # another process built it while we waited
             return
         tmp = f"{out}.{os.getpid()}.tmp"
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *_sources()]
-        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
+        nvcc = _nvcc()
+        objs = [f"{tmp}.{os.path.basename(src)}.o" for src in _sources()]
+        compiles = [
+            [nvcc, *NVCC_FLAGS, "-c", "-o", obj, src]
+            for src, obj in zip(_sources(), objs)
+        ]
+        procs = [
+            subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                             stderr=subprocess.STDOUT, text=True)
+            for cmd in compiles
+        ]
+        steps = [(cmd, *_finish(p)) for cmd, p in zip(compiles, procs)]
+        if all(rc == 0 for _, rc, _ in steps):
+            link = [nvcc, "-shared", "-o", tmp, *objs]
+            steps.append((link, *_finish(subprocess.Popen(
+                link, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True))))
+        text = "".join(" ".join(cmd) + "\n" + o for cmd, _, o in steps)
         with open(out[: -len(".so")] + ".log", "w") as log:
-            log.write(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-        if proc.returncode != 0:
+            log.write(text)
+        for f in objs:
+            if os.path.exists(f):
+                os.unlink(f)
+        failed = [rc for _, rc, _ in steps if rc != 0]
+        if failed:
             if os.path.exists(tmp):
                 os.unlink(tmp)
             raise RuntimeError(
-                f"nvcc failed with exit code {proc.returncode}:\n"
-                f"{proc.stdout}{proc.stderr}"
+                f"nvcc failed with exit code {failed[0]}:\n{text}"
             )
         os.replace(tmp, out)
+
+
+def _finish(proc: subprocess.Popen):
+    """(exit code, output) of a compiler process, killed after 900 s."""
+    try:
+        out, _ = proc.communicate(timeout=900)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        out, _ = proc.communicate()
+    return proc.returncode, out
 
 
 def build_log() -> str:

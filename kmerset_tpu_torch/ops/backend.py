@@ -14,8 +14,9 @@ The one-shot ceiling is a function of the key width and the memory the
 device has left (window_ceiling, memory_budget), not the reference's
 MAX_DEVICE_WINDOWS, which was sized for a 16 GB TPU.  Above it the count
 and the decode run in halo chunks of at most that many windows and merge
-the sorted runs on the host (the reference's merges, but for the
-keys-only fallback: _merge_key_pair).
+the sorted runs on the host: the port's copies of the reference's
+_merge_count_pair and _merge_cascade (backend.py:522-567), and its own
+keys-only _merge_key_pair.
 
 There is no host fallback: on CUDA an error raises.  Left for later slices
 (ROADMAP A): the slow-link probe and gap-encoded key downloads, resident
@@ -31,11 +32,9 @@ from typing import Iterator, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from kmerset_tpu.core import native
-from kmerset_tpu.core.arrays import sorted_unique
-from kmerset_tpu.ops.backend import _merge_cascade, _merge_count_pair
-
 from .. import resolve_device
+from ..core import native
+from ..core.arrays import sorted_unique
 from . import count as count_ops
 from .pack import SINGLE_MAX_K
 
@@ -138,9 +137,9 @@ def stage(
 
 
 def host_library_loaded() -> bool:
-    """Whether the reference's native host library (native/kmerio.c) is
-    loaded.  Without it the FASTA parse, the 2-bit pack and the SPSS build
-    run on the reference's numpy fallbacks."""
+    """Whether the native host library (native/kmerio.c) is loaded.
+    Without it the FASTA parse, the 2-bit pack and the SPSS build run on
+    their numpy fallbacks."""
     return native.get_lib() is not None
 
 
@@ -231,6 +230,43 @@ def device_count_chunked(
         for c, o in _chunks(codes, offsets, k, device, chunk_windows)
     ]
     return _merge_cascade(parts, _merge_count_pair)
+
+
+def _merge_count_pair(ak, ac, bk, bc):
+    """One merge of two sorted-unique (keys, counts) runs, summing counts
+    of shared keys (native one-pass merge; numpy stable-sort fallback):
+    the reference's, backend.py:522-540."""
+    m = native.merge_counts(ak, ac, bk, bc)
+    if m is None:
+        keys = np.concatenate([ak, bk])
+        cnts = np.concatenate([ac, bc])
+        if keys.size == 0:
+            return keys, cnts
+        order = np.argsort(keys, kind="stable")
+        keys, cnts = keys[order], cnts[order]
+        boundary = np.empty(keys.shape[0], dtype=bool)
+        boundary[0] = True
+        np.not_equal(keys[1:], keys[:-1], out=boundary[1:])
+        idx = np.flatnonzero(boundary)
+        m = keys[idx], np.add.reduceat(cnts, idx)
+    return m
+
+
+def _merge_cascade(parts: list, merge_pair):
+    """Balanced pairwise merge of sorted runs down to one (the
+    reference's, backend.py:554-567)."""
+    while len(parts) > 1:
+        nxt = []
+        for i in range(0, len(parts) - 1, 2):
+            a, b = parts[i], parts[i + 1]
+            if isinstance(a, tuple):
+                nxt.append(merge_pair(a[0], a[1], b[0], b[1]))
+            else:
+                nxt.append(merge_pair(a, b))
+        if len(parts) % 2:
+            nxt.append(parts[-1])
+        parts = nxt
+    return parts[0]
 
 
 def _merge_key_pair(ak: np.ndarray, bk: np.ndarray) -> np.ndarray:

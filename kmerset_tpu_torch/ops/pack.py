@@ -108,18 +108,23 @@ def canonical_windows(
     S_SENT for k <= SINGLE_MAX_K (kernel B1), int64 keys and SENTINEL
     above (kernel B2).
 
-    A CUDA tensor runs the kernel; a CPU tensor runs the plain version."""
+    A CUDA tensor runs the kernel, which takes `packed` and `valid`
+    16-byte aligned (it stages them with 16-byte copies; a fresh tensor
+    or a slice from its start is); a CPU tensor runs the plain version."""
     n = _check(packed, L, k, valid)
     if packed.device.type == "cpu":
         return canonical_windows_plain(packed, L, k, canonical, valid)
     if packed.device.type != "cuda":
         raise ValueError(f"unsupported device {packed.device}")
+    out = torch.empty(n, dtype=key_dtype(k), device=packed.device)
+    for name, t in (("packed", packed), ("valid", valid), ("out", out)):
+        if t is not None and t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned (16-byte copies)")
     from . import _build
 
     lib = _build.load()
     single = k <= SINGLE_MAX_K
     entry = lib.kmerset_pack_canonical if single else lib.kmerset_pack_canonical64
-    out = torch.empty(n, dtype=key_dtype(k), device=packed.device)
     with torch.cuda.device(packed.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = entry(

@@ -7,7 +7,7 @@ It counts the FASTA's canonical k-mers (k = 15 by default, the CLI's
 default).  In each of two repetitions (the first pays one-time costs) it
 prints one line per step:
 - the host steps that KmerCounter.from_fasta takes (wall ms): the native
-  parse when the reference's host library is loaded, else its numpy
+  parse when the native host library is loaded, else its numpy
   fallback as read_lines, parse_fasta_lines and reads_to_codes;
 - the staging (2-bit pack and upload, wall ms);
 - each device step of ops/count.count_kmers_frag (CUDA-event ms, through
@@ -30,10 +30,9 @@ import time
 
 import torch
 
-from kmerset_tpu.core import io as core_io
-from kmerset_tpu.core import native
-
 from .. import resolve_device
+from ..core import io as core_io
+from ..core import native
 from ..core.kmer_counter import DEFAULT_VALUE_MAX
 from ..ops import _build, backend
 from ..ops import count as count_ops

@@ -1,1 +1,2 @@
-"""CLI helpers; everything but the --trace edition is the reference's."""
+"""CLI helpers: flags (the reference's flag surface, --trace as a
+torch.profiler trace, --device), the logger and the seeded draws."""

@@ -1,27 +1,108 @@
-"""CLI flag plumbing: the reference's (kmerset_tpu/utils/flags.py), with a
---trace that records a torch.profiler trace instead of a jax.profiler one
-(:131-142), and the port's --device flag."""
+"""CLI flag plumbing (reference: lib/flags.h:12-53).
+
+The port's copy of kmerset_tpu/utils/flags.py:1-160, without its JAX
+parts: honor_platform_env (:61-83), which re-pins JAX's platform, and
+the jax.profiler trace (:131-142), which is a torch.profiler trace here.
+Added: the port's --device flag.  The flag surface is otherwise the
+reference's, with the same help strings; boolean flags accept --flag /
+--noflag / --flag=true|false like absl.
+"""
 
 from __future__ import annotations
 
+import argparse
 import contextlib
 import os
 import sys
+from typing import List
 
 import torch
 
-from kmerset_tpu.utils.flags import (  # noqa: F401 - re-exported
-    add_bool_flag,
-    add_common_flags,
-    apply_workers,
-    check_k,
-    parse_args,
-)
-
 from .. import resolve_device
+from ..core import native
+from ..core.config import CLI_SUPPORTED_K
 from ..ops.pack import MAX_K
 
 TRACE_FILE = "trace.json"
+
+FLAG_MESSAGES = {
+    "k": "the length of k-mers",
+    "debug": "enable debugging messages",
+    "compressor": (
+        'a program to compress output files; e.g., "bzip2" for bzip2, '
+        '"gzip" for gzip, and "" for no compression'
+    ),
+    "decompressor": (
+        'a program to decompress input files; e.g., "bzip2 -d" for bzip2, '
+        '"gzip -d" for gzip, and "" for no decompression'
+    ),
+    "workers": "number of threads to use",
+    "canonical": "set this flag when handling canonical k-mers",
+}
+
+
+def _str2bool(v: str) -> bool:
+    if v.lower() in ("true", "t", "1", "yes"):
+        return True
+    if v.lower() in ("false", "f", "0", "no"):
+        return False
+    raise argparse.ArgumentTypeError(f"invalid boolean: {v}")
+
+
+def add_bool_flag(parser: argparse.ArgumentParser, name: str, default: bool, help_: str):
+    parser.add_argument(
+        f"--{name}",
+        nargs="?",
+        const=True,
+        default=default,
+        type=_str2bool,
+        help=help_,
+    )
+    parser.add_argument(
+        f"--no{name}", dest=name, action="store_false", help=argparse.SUPPRESS
+    )
+    if not hasattr(parser, "_bool_flags"):
+        parser._bool_flags = set()  # type: ignore[attr-defined]
+    parser._bool_flags.add(name)  # type: ignore[attr-defined]
+
+
+def parse_args(parser: argparse.ArgumentParser, argv: List[str] | None = None):
+    """parse_args with absl bool-flag semantics: a bare `--flag` never
+    consumes the following token (argparse's nargs='?' would swallow a
+    positional, e.g. `--canonical dir`); it is rewritten to `--flag=true`
+    (reference absl behavior, lib/flags.h:12-22)."""
+    if argv is None:
+        argv = sys.argv[1:]
+    bools = getattr(parser, "_bool_flags", set())
+    argv = [a + "=true" if a.startswith("--") and a[2:] in bools else a for a in argv]
+    return parser.parse_args(argv)
+
+
+def add_common_flags(
+    parser: argparse.ArgumentParser,
+    *,
+    compressor: bool = False,
+    canonical: bool = True,
+) -> None:
+    parser.add_argument("--k", type=int, default=15, help=FLAG_MESSAGES["k"])
+    add_bool_flag(parser, "debug", False, FLAG_MESSAGES["debug"])
+    parser.add_argument(
+        "--decompressor", default="", help=FLAG_MESSAGES["decompressor"]
+    )
+    if compressor:
+        parser.add_argument(
+            "--compressor", default="", help=FLAG_MESSAGES["compressor"]
+        )
+    parser.add_argument(
+        "--workers", type=int, default=1, help=FLAG_MESSAGES["workers"]
+    )
+    parser.add_argument(
+        "--trace",
+        default="",
+        help="capture a torch.profiler trace of the run into this directory",
+    )
+    if canonical:
+        add_bool_flag(parser, "canonical", True, FLAG_MESSAGES["canonical"])
 
 
 def add_device_flag(parser) -> None:
@@ -30,6 +111,19 @@ def add_device_flag(parser) -> None:
         default="cuda",
         help="torch device for counting and decoding: cuda (default) or cpu",
     )
+
+
+def apply_workers(args) -> None:
+    """Applies --workers to the native OpenMP pool (the reference sizes
+    its thread pools from this flag, lib/flags.h:25-53)."""
+    native.set_threads(getattr(args, "workers", 1))
+
+
+def check_k(k: int) -> None:
+    if k not in CLI_SUPPORTED_K:
+        # Exit code 1 like the reference (kmerset-build.cc:140-142).
+        print(f"unsupported k value: {k}", file=sys.stderr)
+        raise SystemExit(1)
 
 
 def device_or_exit(args, logger) -> torch.device:

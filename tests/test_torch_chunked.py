@@ -14,10 +14,10 @@ import torch
 from kmerset_tpu.core import kmer as kc
 from kmerset_tpu.core.kmer_counter import KmerCounter as RefCounter
 from kmerset_tpu.core.kmer_counter import extract_kmers
-from kmerset_tpu.core.strings import PackedStrings
 from kmerset_tpu.ops import backend as ref_backend
 from kmerset_tpu_torch.core import spss as port_spss
 from kmerset_tpu_torch.core.kmer_counter import KmerCounter
+from kmerset_tpu_torch.core.strings import PackedStrings
 from kmerset_tpu_torch.ops import backend, unitigs
 
 

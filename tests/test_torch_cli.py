@@ -50,7 +50,13 @@ def fasta(tmp_path_factory):
 
 
 def _run(module: str, *args: str) -> subprocess.CompletedProcess:
-    env = dict(os.environ, JAX_PLATFORMS="cpu", KMERSET_TPU_FORCE_BACKEND="host")
+    """The CLI `module` in a subprocess: the reference's pinned to its host
+    path, the port's with no pin in its environment (it reaches no code
+    that reads it)."""
+    env = dict(os.environ, JAX_PLATFORMS="cpu")
+    env.pop("KMERSET_TPU_FORCE_BACKEND", None)
+    if module.startswith("kmerset_tpu."):
+        env["KMERSET_TPU_FORCE_BACKEND"] = "host"
     return subprocess.run(
         [sys.executable, "-m", module, *args],
         capture_output=True, text=True, cwd=ROOT, env=env, timeout=300,
@@ -173,7 +179,7 @@ def strain_sets(tmp_path_factory):
     --workers 4 on --device cpu, the reference's pinned to its host path
     with --workers 1."""
     from kmerset_tpu.core import kmer as kc
-    from kmerset_tpu.core.kmer_set import KmerSet
+    from kmerset_tpu_torch.core.kmer_set import KmerSet
     from kmerset_tpu_torch.core.kmer_set_compact import KmerSetCompact
 
     d = tmp_path_factory.mktemp("multi")

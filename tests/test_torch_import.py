@@ -1,7 +1,9 @@
-"""The port imports no JAX, and asks for its device explicitly.
+"""The port imports neither JAX nor the JAX package, and asks for its
+device explicitly.
 
-tests/conftest.py imports jax into the test process, so the import check
-runs in a subprocess with jax blocked.
+tests/conftest.py imports jax and kmerset_tpu into the test process, so
+the import check runs in a subprocess with both blocked and no
+KMERSET_TPU_FORCE_BACKEND in its environment.
 """
 
 import os
@@ -17,8 +19,10 @@ import kmerset_tpu_torch
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _NO_JAX = r"""
-import importlib, pkgutil, sys
-sys.modules["jax"] = None  # any import of jax now raises ImportError
+import contextlib, importlib, io, os, pkgutil, sys
+# Any import of jax or of the JAX package now raises ImportError.
+sys.modules["jax"] = None
+sys.modules["kmerset_tpu"] = None
 import numpy as np
 import kmerset_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(
@@ -30,27 +34,77 @@ c = KmerCounter.from_reads(3, ["ACGTTGCA", "AANAC"], True, device="cpu")
 # canonical 3-mers of ACGTTGCA: ACG CGT(=ACG) GTT(=AAC) TTG(=CAA) TGC(=GCA) GCA
 assert c.kmers.tolist() == [0b000001, 0b000110, 0b010000, 0b100100], c.kmers
 assert c.counts.tolist() == [1, 2, 1, 2], c.counts
-assert sys.modules["jax"] is None
+
+# The CLIs end to end on the CPU: two builds with --check, a joint
+# compression of the two sets, its decompression and kmerset-stat.
+from kmerset_tpu_torch.cli import (kmerset_build, kmerset_multiple_compress,
+                                   kmerset_multiple_decompress, kmerset_stat)
+work = sys.argv[1]
+rng = np.random.default_rng(3)
+base = rng.integers(0, 4, 3000)
+sets = []
+for i in range(2):
+    mut = base.copy()
+    mut[rng.integers(0, 3000, 12)] = rng.integers(0, 4, 12)
+    fa, out = os.path.join(work, f"g{i}.fa"), os.path.join(work, f"s{i}.txt")
+    with open(fa, "w") as f:
+        f.write(">g\n" + "".join("ACGT"[c] for c in mut) + "\n")
+    kmerset_build.main(["--device", "cpu", "--k", "15", "--check", "--out", out, fa])
+    sets.append(out)
+d = os.path.join(work, "M")
+kmerset_multiple_compress.main(["--device", "cpu", "--k", "15", "--out", d, *sets])
+log = io.StringIO()
+logger = __import__("logging").getLogger("kmerset")
+logger.addHandler(__import__("logging").StreamHandler(log))
+kmerset_multiple_decompress.main(["--device", "cpu", "--k", "15", d])
+tsv = io.StringIO()
+with contextlib.redirect_stdout(tsv):
+    kmerset_stat.main(["--device", "cpu", "--k", "15", *sets])
+rows = [r.split("\t") for r in tsv.getvalue().splitlines()]
+want = [f"kmer_set.Hash() = {r[3]}" for r in rows]
+assert len(rows) == 2 and all(w in log.getvalue() for w in want), log.getvalue()
+assert sys.modules["jax"] is None and sys.modules["kmerset_tpu"] is None
+assert "KMERSET_TPU_FORCE_BACKEND" not in os.environ
 print(len(names))
 """
 
 
-def test_port_imports_and_counts_without_jax():
-    env = dict(os.environ, KMERSET_TPU_FORCE_BACKEND="host")
+def test_port_imports_and_counts_without_jax(tmp_path):
+    """With jax and kmerset_tpu blocked: every module imports, and the
+    build, compress, decompress and stat CLIs run on the CPU."""
+    env = dict(os.environ)
+    env.pop("KMERSET_TPU_FORCE_BACKEND", None)
     proc = subprocess.run(
-        [sys.executable, "-c", _NO_JAX], capture_output=True, text=True,
-        cwd=ROOT, env=env, timeout=300,
+        [sys.executable, "-c", _NO_JAX, str(tmp_path)], capture_output=True,
+        text=True, cwd=ROOT, env=env, timeout=300,
     )
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip()) >= 25  # every module of slices 1 to 3
+    assert "kmer_set_compact -> KmerSet: ok" in proc.stderr
+    assert int(proc.stdout.strip().splitlines()[-1]) >= 36  # slices 1 to 4
+
+
+def _port_sources():
+    paths = [os.path.join(ROOT, "chip_smoke.py")]
+    for d, _, files in os.walk(os.path.dirname(kmerset_tpu_torch.__file__)):
+        paths += [os.path.join(d, f) for f in files if f.endswith(".py")]
+    return paths
+
+
+def test_no_jax_package_import_in_port_sources():
+    """No module of the port, and not chip_smoke.py, imports kmerset_tpu:
+    the port keeps its own copy of the host code it needs."""
+    pat = re.compile(r"^\s*(import|from) kmerset_tpu(\.|\s|$)", re.M)
+    for path in _port_sources():
+        with open(path) as f:
+            text = f.read()
+        assert not pat.search(text), path
+        if os.path.basename(path) != "chip_smoke.py":
+            assert "KMERSET_TPU_FORCE_BACKEND" not in text, path
 
 
 def test_no_jax_import_in_port_sources():
     pat = re.compile(r"^\s*(import jax|from jax)", re.M)
-    paths = [os.path.join(ROOT, "chip_smoke.py")]
-    for d, _, files in os.walk(os.path.dirname(kmerset_tpu_torch.__file__)):
-        paths += [os.path.join(d, f) for f in files if f.endswith(".py")]
-    for path in paths:
+    for path in _port_sources():
         with open(path) as f:
             assert not pat.search(f.read()), path
 

@@ -18,12 +18,14 @@ import pytest
 
 from kmerset_tpu.core import kmer as kc
 from kmerset_tpu.core.config import get_config
-from kmerset_tpu.core.kmer_set import KmerSet
+from kmerset_tpu.core.kmer_set import KmerSet as RefKmerSet
 from kmerset_tpu.core.kmer_set_compact import KmerSetCompact as RefCompact
 from kmerset_tpu.core.kmer_set_set import KmerSetSet as RefSet
 from kmerset_tpu.core.kmer_set_set import KmerSetSetReader as RefReader
+from kmerset_tpu_torch.core.kmer_set import KmerSet
 from kmerset_tpu_torch.core.kmer_set_compact import KmerSetCompact
 from kmerset_tpu_torch.core.kmer_set_set import KmerSetSet, KmerSetSetReader
+from kmerset_tpu_torch.core.strings import PackedStrings
 from kmerset_tpu_torch.ops import backend
 from kmerset_tpu_torch.ops import count as count_ops
 
@@ -53,7 +55,7 @@ def _port_compacts(k, arrays):
 
 
 def _ref_compacts(k, arrays):
-    return [RefCompact.from_kmer_set(KmerSet(k, a, _sorted=True), True)
+    return [RefCompact.from_kmer_set(RefKmerSet(k, a, _sorted=True), True)
             for a in arrays]
 
 
@@ -171,12 +173,13 @@ def test_lazy_compact_builds_on_its_device_and_refuses_reference_sets():
     lazy = KmerSetCompact.from_kmer_set(KmerSet(k, a, _sorted=True), True,
                                         lazy=True, device="cpu")
     assert lazy._pending is not None and lazy.size() == a.size
-    eager = RefCompact.from_kmer_set(KmerSet(k, a, _sorted=True), True)
+    eager = RefCompact.from_kmer_set(RefKmerSet(k, a, _sorted=True), True)
     np.testing.assert_array_equal(lazy.spss.codes, eager.spss.codes)
     assert lazy._pending is None and lazy.weight() == eager.weight()
     lazy.pack_in_memory()
     np.testing.assert_array_equal(lazy.spss.offsets, eager.spss.offsets)
-    lazy.spss = eager.spss  # the setter drops the decode cache
+    # The setter drops the decode cache.
+    lazy.spss = PackedStrings(eager.spss.codes, eager.spss.offsets)
     assert lazy._kmers_cache is None
     np.testing.assert_array_equal(lazy.kmers(True), a)
     with pytest.raises(TypeError, match="port's KmerSetCompact"):

@@ -151,3 +151,75 @@ def test_pack_pair_valid_mask_writes_int64_sentinel():
     assert (got[~valid] == pack.SENTINEL).all()
     assert pack.SENTINEL == int(R.SENTINEL)
     assert pack.SINGLE_MAX_K == R.SINGLE_MAX_K and pack.MAX_K == R.PAIR_MAX_K
+
+
+# -- the redesigned kernels' per-window arithmetic (csrc/pack.cu) ----------
+
+_PAIR_SWAPS = (
+    (1, 0x5555555555555555), (2, 0x3333333333333333),
+    (4, 0x0F0F0F0F0F0F0F0F), (8, 0x00FF00FF00FF00FF),
+    (16, 0x0000FFFF0000FFFF), (32, 0x00000000FFFFFFFF),
+)
+
+
+def _brev(x: torch.Tensor, bits: int) -> torch.Tensor:
+    """__brev (bits = 32) or __brevll (bits = 64) on non-negative int64
+    lanes; every right shift is masked, so the sign bit never spreads."""
+    for s, m in _PAIR_SWAPS:
+        if s < bits:
+            x = ((x >> s) & m) | ((x & m) << s)
+    return x
+
+
+def _kernel_formula(packed, L, k, canonical, valid=None):
+    """The CUDA kernel's window keys, written once in torch int64 ops: the
+    32-bit words of the packed tile (16 codes each, low bits first), two
+    funnel shifts over words w, w+1, w+2 for the span x of window p, the
+    reverse complement ~x & mask, the forward key as x's 2-bit pairs
+    reversed (bit reversal, a swap of the bits of every pair, a shift
+    right by word bits - 2k), and the min."""
+    n = L - k + 1
+    b = torch.cat([packed, packed.new_zeros(16)]).long()
+    b = b[: (b.shape[0] // 4) * 4].view(-1, 4)
+    words = b[:, 0] | (b[:, 1] << 8) | (b[:, 2] << 16) | (b[:, 3] << 24)
+    p = torch.arange(n)
+    w, sh = p >> 4, 2 * (p & 15)
+    w0, w1, w2 = words[w], words[w + 1], words[w + 2]
+    lo = (((w1 << 32) | w0) >> sh) & 0xFFFFFFFF
+    hi = (((w2 << 32) | w1) >> sh) & 0xFFFFFFFF
+    mask = (1 << (2 * k)) - 1
+    bits = 32 if k <= pack.SINGLE_MAX_K else 64
+    x = (lo if bits == 32 else (hi << 32) | lo) & mask
+    y = _brev(x, bits)
+    y = ((y >> 1) & 0x5555555555555555) | ((y & 0x5555555555555555) << 1)
+    fwd = (y >> (bits - 2 * k)) & mask
+    rc = ~x & mask
+    key = torch.minimum(fwd, rc) if canonical else fwd
+    if valid is not None:
+        key = torch.where(valid, key, torch.full_like(key, pack.key_sentinel(k)))
+    return key.to(pack.key_dtype(k))
+
+
+@pytest.mark.parametrize("k", range(1, pack.MAX_K + 1))
+def test_kernel_formula_equals_plain(k):
+    """The funnel-shift formula of csrc/pack.cu equals
+    canonical_windows_plain at every k, canonical and forward, on random
+    codes and all-A / all-T runs, with the stream starting at every offset
+    mod 4 (so every packed-byte phase and a ragged last byte occur), with
+    and without `valid`."""
+    rng = np.random.default_rng(500 + k)
+    for kind in ("random", "all-A", "all-T"):
+        codes = rng.integers(0, 4, 400 + k, dtype=np.uint8)
+        if kind != "random":
+            codes[:300] = {"all-A": 0, "all-T": 3}[kind]
+        for start in range(4):
+            c = codes[start:]
+            L, n = c.size, c.size - k + 1
+            packed = _packed(c)
+            valid = torch.from_numpy(rng.random(n) > 0.1)
+            for canonical in (True, False):
+                for v in (valid, None):
+                    got = _kernel_formula(packed, L, k, canonical, v)
+                    want = pack.canonical_windows_plain(packed, L, k, canonical, v)
+                    assert got.dtype == want.dtype
+                    assert torch.equal(got, want), (kind, start, canonical)

@@ -2,17 +2,21 @@
 edition against the reference's host build and decode, on the CPU; exact.
 
 The reference is pinned to its host arms (KMERSET_TPU_FORCE_BACKEND=host),
-the build the port's dumps must equal byte for byte.
+the build the port's dumps must equal byte for byte.  Each side gets its
+own KmerSet and PackedStrings over the same arrays.
 """
 
 import numpy as np
 import pytest
 
 from kmerset_tpu.core import spss as ref_spss
-from kmerset_tpu.core.kmer_set import KmerSet
+from kmerset_tpu.core.kmer_set import KmerSet as RefKmerSet
 from kmerset_tpu.core.kmer_set_compact import KmerSetCompact as RefCompact
+from kmerset_tpu.core.strings import PackedStrings as RefStrings
 from kmerset_tpu_torch.core import spss
+from kmerset_tpu_torch.core.kmer_set import KmerSet
 from kmerset_tpu_torch.core.kmer_set_compact import KmerSetCompact
+from kmerset_tpu_torch.core.strings import PackedStrings
 
 
 def _kmer_set(k: int) -> KmerSet:
@@ -24,6 +28,14 @@ def _kmer_set(k: int) -> KmerSet:
     return KmerSet(k, np.unique(kmers), _sorted=True)
 
 
+def _ref(ks: KmerSet) -> RefKmerSet:
+    return RefKmerSet(ks.k, ks.kmers, _sorted=True)
+
+
+def _port_strings(ps: RefStrings) -> PackedStrings:
+    return PackedStrings(ps.codes, ps.offsets)
+
+
 @pytest.fixture(autouse=True)
 def _host_reference(monkeypatch):
     monkeypatch.setenv("KMERSET_TPU_FORCE_BACKEND", "host")
@@ -32,20 +44,23 @@ def _host_reference(monkeypatch):
 @pytest.mark.parametrize("k", [9, 15, 19, 23])
 def test_decode_matches_reference(k):
     ks = _kmer_set(k)
-    strings = ref_spss.get_spss_canonical(ks)
+    strings = ref_spss.get_spss_canonical(_ref(ks))
     want = ref_spss.decode_unique_kmers(strings, k, True)
     np.testing.assert_array_equal(want, ks.kmers)
-    got = spss.decode_unique_kmers(strings, k, True, device="cpu")
+    mine = _port_strings(strings)
+    got = spss.decode_unique_kmers(mine, k, True, device="cpu")
     np.testing.assert_array_equal(got, want)
-    rt = spss.get_kmer_set_from_spss(strings, k, True, device="cpu")
-    assert rt.equals(ref_spss.get_kmer_set_from_spss(strings, k, True))
+    rt = spss.get_kmer_set_from_spss(mine, k, True, device="cpu")
+    np.testing.assert_array_equal(
+        rt.kmers, ref_spss.get_kmer_set_from_spss(strings, k, True).kmers
+    )
 
 
 def test_compact_edition_decodes_on_device_and_dumps_like_reference(tmp_path):
     k = 15
     ks = _kmer_set(k)
     port = KmerSetCompact.from_kmer_set(ks, True, device="cpu")
-    ref = RefCompact.from_kmer_set(ks, True)
+    ref = RefCompact.from_kmer_set(_ref(ks), True)
     fresh = KmerSetCompact(k, port.spss, device="cpu")
     assert fresh._kmers_cache is None  # the decode below is a real one
     assert fresh.to_kmer_set(True).equals(ks)
@@ -61,11 +76,11 @@ def test_spss_build_matches_reference(k):
     codes and offsets."""
     ks = _kmer_set(k)
     got = spss.get_spss_canonical(ks, device="cpu")
-    want = ref_spss.get_spss_canonical(ks)
+    want = ref_spss.get_spss_canonical(_ref(ks))
     np.testing.assert_array_equal(got.codes, want.codes)
     np.testing.assert_array_equal(got.offsets, want.offsets)
     u_got = spss.get_unitigs_canonical(ks, device="cpu")
-    u_want = ref_spss.get_unitigs_canonical(ks)
+    u_want = ref_spss.get_unitigs_canonical(_ref(ks))
     np.testing.assert_array_equal(u_got.codes, u_want.codes)
     np.testing.assert_array_equal(u_got.offsets, u_want.offsets)
 
@@ -76,7 +91,7 @@ def test_spss_build_edge_cases_match_reference():
     for kmers in (np.empty(0, np.int64), np.array([5], np.int64)):
         ks = KmerSet(19, kmers, _sorted=True)
         got = spss.get_spss_canonical(ks, device="cpu")
-        want = ref_spss.get_spss_canonical(ks)
+        want = ref_spss.get_spss_canonical(_ref(ks))
         np.testing.assert_array_equal(got.codes, want.codes)
         np.testing.assert_array_equal(got.offsets, want.offsets)
     with pytest.raises(ValueError, match="odd k"):
