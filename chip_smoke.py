@@ -9,11 +9,15 @@ It builds the port's CUDA kernels from the checkout's sources and holds
 each against its plain PyTorch version on the card: B1 (pack) at every
 k from 1 to 15 and B2 at every k from 16 to 23, canonical and forward,
 with and without `valid`, at n = 1, below one tile, a ragged last tile
-and 2^24 windows; B3 (compaction, int32 and int64 lanes); and the unitig
-graph front-end against itself on the CPU.  Each kernel is timed at the
-main path's shape beside its bound (the bytes it must move over the
-card's 3.35 TB/s), its plain version and, for B3, the one PyTorch call
-that computes the same function (`lane[keep]` per lane).  Then it drives the
+and 2^24 windows; B3 (the one-pass compaction) at n = 1, below one tile,
+a ragged tile, 5,000,011 and 2^24, keep fractions 0 to 1, 1 to 3 int32
+or int64 lanes, bool and uint8 keep, and views at element offset 1 (its
+element-by-element path); and the unitig graph front-end against itself
+on the CPU.  Each kernel is timed at the main path's shapes beside its
+bound (the bytes it must move over the card's 3.35 TB/s), its plain
+version, its wrapper's host time per call and, for B3, the one PyTorch
+call that computes the same function (`lane[keep]` per lane), at the
+five shapes the count and decode launch.  Then it drives the
 port's `kmerset-build --check` on the card: run A (k = 15, a 2^24-base
 genome, cutoff 1), run C (k = 23, the same genome, cutoff 1) and run D
 (k = 19, ~3x-coverage reads of a 2^22-base genome, cutoff 2).  Each dump
@@ -67,10 +71,16 @@ HBM_BYTES_PER_S = 3.35e12  # one H100 SXM's memory rate (NVIDIA data sheet)
 # bit operations.
 SCALAR_OPS_PER_S = 67e12
 # Integer operations per window of B1/B2 (two funnel shifts, mask, bit
-# reversal and pair swap, complement, min, valid test) and per element of
-# B3 (flag read, ballot rank, store address), counted from the sources.
+# reversal and pair swap, complement, min, valid test), counted from
+# csrc/pack.cu.  B3 (csrc/compact.cu), per element: 4 for the flags (per
+# 16: four nonzero-byte tests of 4 operations, their merge, popc, the
+# 5-step shuffle scan, the 8 warp totals, the owner word), plus 12 per
+# lane (per 16-byte load: the owner shuffle, offsets, bounds test and
+# first rank; per element: the flag bit test, the shared-memory write and
+# rank step, the shared-memory read and its share of the 16-byte store).
 PACK_OPS_PER_WINDOW = 24
-COMPACT_OPS_PER_ELEMENT = 8
+COMPACT_OPS_PER_ELEMENT = 4
+COMPACT_OPS_PER_LANE_ELEMENT = 12
 
 
 def say(phase, msg: str) -> None:
@@ -101,6 +111,17 @@ def time_ms(fn, reps: int = 7, inner: int = 10) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b) / inner)
     return statistics.median(times)
+
+
+def host_ms(torch, fn, calls: int = 100) -> float:
+    """A wrapper's own host cost per call, the card left to catch up."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    ms = (time.perf_counter() - t0) * 1e3 / calls
+    torch.cuda.synchronize()
+    return ms
 
 
 def environment(torch) -> str:
@@ -198,13 +219,7 @@ def check_pack(torch, rng, kernel: str, ks, timed) -> dict:
         plain = time_ms(
             lambda: pack.canonical_windows_plain(packed, L, k, True, valid), 3, 2
         )
-        # The wrapper's own host cost per call, the card left to catch up.
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(100):
-            pack.canonical_windows(packed, L, k, True, valid)
-        host_ms = (time.perf_counter() - t0) * 10
-        torch.cuda.synchronize()
+        host = host_ms(torch, lambda: pack.canonical_windows(packed, L, k, True, valid))
         # Each input byte read once (packed codes, valid), each key
         # written once.
         n_bytes = packed.shape[0] + n * (1 + got.element_size())
@@ -213,7 +228,7 @@ def check_pack(torch, rng, kernel: str, ks, timed) -> dict:
                f"{ms:.4f} ms, bound {bound:.4f} ms ({by}: {n_bytes / n:.2f} "
                f"B per window), {100 * bound / ms:.1f}% of bound, "
                f"{n_bytes / ms / 1e9:.3f} TB/s; plain {plain:.4f} ms; "
-               f"wrapper host time {host_ms:.4f} ms per call")
+               f"wrapper host time {host:.4f} ms per call")
         if main is None:
             main = (ms, plain, bound, by)
     say(2, f"{kernel} pack: equal to plain in all {n_cases} cases (k = "
@@ -228,58 +243,95 @@ def check_pack(torch, rng, kernel: str, ks, timed) -> dict:
             "bound_ms": main[2], "bound_by": main[3], "library_ms": None}
 
 
+COMPACT_LANES = {"int32": ("int32",), "int32 x2": ("int32", "int32"),
+                 "int32 x3": ("int32",) * 3, "int64": ("int64",),
+                 "int64+int32": ("int64", "int32")}
+# The shapes the main path launches, timed at 2^24: the k = 15 count (two
+# int32 lanes, all kept: the first is the kernels line's), the k = 19/23
+# count, the k = 15 and k = 19/23 decodes, and one int32 lane at 5% kept.
+COMPACT_TIMED = (("int32 x2", 1.0), ("int64+int32", 1.0), ("int32", 1.0),
+                 ("int64", 1.0), ("int32", 0.05))
+
+
 def check_compact(torch, rng) -> dict:
-    """Kernel B3 against the plain version: int32 lanes (1 and 2, the
-    k = 15 count) and the [int64 key, int32 position] pair (the k = 19/23
-    count).  Timed at the k = 15 count's 2 int32 lanes, all kept."""
+    """Kernel B3 against the plain version at n = 1, 1000, one tile + 77,
+    5,000,011 and 2^24, keep fraction 0, 0.05, 0.5 and 1, and every lane
+    set in COMPACT_LANES, with bool keep, uint8 keep whose kept bytes hold
+    2..255, and views at element offset 1 of keep, of every lane and of
+    the last lane alone (not 16-byte aligned: the kernel's
+    element-by-element path).  Times the COMPACT_TIMED shapes at 2^24
+    beside their bound."""
     from kmerset_tpu_torch.ops import compact
 
-    err, main = 0, None
-    for n in (1 << 24, 5_000_011):
-        lane32 = torch.from_numpy(
-            rng.integers(-(1 << 31), (1 << 31) - 1, n, dtype=np.int32)
-        ).cuda()
-        lane64 = torch.from_numpy(
-            rng.integers(-(1 << 62), 1 << 62, n, dtype=np.int64)
-        ).cuda()
-        pos = torch.arange(n, dtype=torch.int32, device="cuda")
+    err, n_cases, main = 0, 0, None
+    # One element, below one tile, a tile and 77, two of the main path's.
+    for n in (1, 1000, compact.TILE + 77, 5_000_011, 1 << 24):
+        # n + 1 elements each, so that [1:] is a view at an odd offset.
+        pool = {"int32": [torch.from_numpy(rng.integers(
+                    -(1 << 31), (1 << 31) - 1, n + 1, dtype=np.int32)).cuda()
+                    for _ in range(3)],
+                "int64": [torch.from_numpy(rng.integers(
+                    -(1 << 62), 1 << 62, n + 1, dtype=np.int64)).cuda()]}
         for frac in (0.0, 0.05, 0.5, 1.0):
-            keep = torch.from_numpy(rng.random(n) < frac).cuda()
-            for name, lanes in (("int32", [lane32]), ("int32 x2", [lane32, pos]),
-                                ("int64+int32", [lane64, pos])):
-                got, ns = compact.compact_select(lanes, keep)
-                want, ns_p = compact.compact_select_plain(lanes, keep)
-                m = int(ns_p)
-                e = abs(int(ns) - m)
-                for g, w in zip(got, want):
-                    if g.dtype != w.dtype:
-                        raise AssertionError(f"B3 {name}: dtype {g.dtype}")
-                    if m:
-                        e = max(e, int((g[:m] - w[:m]).abs().max()))
-                if e != 0:
-                    raise AssertionError(
-                        f"B3 n={n} lanes={name} keep={frac}: max err {e}"
-                    )
-                err = max(err, e)
-                if n == 1 << 24 and frac in (0.05, 1.0):
-                    ms = time_ms(lambda: compact.compact_select(lanes, keep))
-                    plain = time_ms(
-                        lambda: compact.compact_select_plain(lanes, keep), 3, 2
-                    )
-                    # The same function as one PyTorch call per lane.
-                    library = time_ms(lambda: [lane[keep] for lane in lanes])
-                    width = sum(lane.element_size() for lane in lanes)
-                    bound, by = bound_ms(n * (1 + width) + m * width,
-                                         COMPACT_OPS_PER_ELEMENT * n)
-                    say(3, f"B3 compact n={n} lanes={name} keep={frac}: "
-                           f"equal, n_sel={m}; kernel {ms:.4f} ms, bound "
-                           f"{bound:.4f} ms ({by}), {100 * bound / ms:.1f}% "
-                           f"of bound; plain {plain:.4f} ms; lane[keep] per "
-                           f"lane {library:.4f} ms")
-                    if name == "int32 x2" and frac == 1.0:
-                        main = (ms, plain, bound, by, library)
-        say(3, f"B3 compact n={n}: kernel equal to plain for lanes int32, "
-               "int32 x2 and int64+int32, keep fractions 0, 0.05, 0.5, 1")
+            kept = rng.random(n + 1) < frac
+            keep_bool = torch.from_numpy(kept).cuda()
+            keep_u8 = torch.from_numpy(np.where(
+                kept, rng.integers(2, 256, n + 1), 0).astype(np.uint8)).cuda()
+            for name, kinds in COMPACT_LANES.items():
+                full = [pool[kind][kinds[:i].count(kind)]
+                        for i, kind in enumerate(kinds)]
+                head = [x[:n] for x in full]
+                variants = {
+                    "bool keep": (head, keep_bool[:n]),
+                    "uint8 keep": (head, keep_u8[:n]),
+                    "keep[1:]": (head, keep_u8[1:]),
+                    "lanes[1:]": ([x[1:] for x in full], keep_bool[:n]),
+                    "last lane[1:]": (head[:-1] + [full[-1][1:]], keep_u8[:n]),
+                }
+                for variant, (lanes, keep) in variants.items():
+                    got, ns = compact.compact_select(lanes, keep)
+                    want, ns_p = compact.compact_select_plain(lanes, keep)
+                    m = int(ns_p)
+                    e = abs(int(ns) - m)
+                    for g, w in zip(got, want):
+                        if g.dtype != w.dtype or g.shape != w.shape:
+                            raise AssertionError(f"B3 {name}: {g.dtype} {g.shape}")
+                        if m:
+                            diff = g[:m].long() - w[:m].long()
+                            e = max(e, int(diff.abs().max()))
+                    if e != 0:
+                        raise AssertionError(
+                            f"B3 n={n} lanes={name} keep={frac} {variant}: "
+                            f"max err {e}")
+                    err = max(err, e)
+                    n_cases += 1
+                if n != 1 << 24 or (name, frac) not in COMPACT_TIMED:
+                    continue
+                lanes, keep = head, keep_bool[:n]
+                m = int(keep.sum())
+                ms = time_ms(lambda: compact.compact_select(lanes, keep))
+                plain = time_ms(
+                    lambda: compact.compact_select_plain(lanes, keep), 3, 2)
+                # The same function as one PyTorch call per lane.
+                library = time_ms(lambda: [lane[keep] for lane in lanes])
+                host = host_ms(torch, lambda: compact.compact_select(lanes, keep))
+                width = sum(lane.element_size() for lane in lanes)
+                n_bytes = n * (1 + width) + m * width
+                ops = COMPACT_OPS_PER_ELEMENT + COMPACT_OPS_PER_LANE_ELEMENT * len(lanes)
+                bound, by = bound_ms(n_bytes, n * ops)
+                say(3, f"B3 compact n={n} lanes={name} keep={frac}: n_sel={m}; "
+                       f"kernel {ms:.4f} ms, bound {bound:.4f} ms ({by}: "
+                       f"{n_bytes / n:.2f} B per element), "
+                       f"{100 * bound / ms:.1f}% of bound, "
+                       f"{n_bytes / ms / 1e9:.3f} TB/s; plain {plain:.4f} ms; "
+                       f"lane[keep] per lane {library:.4f} ms; wrapper host "
+                       f"time {host:.4f} ms per call")
+                if (name, frac) == COMPACT_TIMED[0]:
+                    main = (ms, plain, bound, by, library)
+        say(3, f"B3 compact n={n}: equal to plain for lanes "
+               f"{', '.join(COMPACT_LANES)}, keep fractions 0, 0.05, 0.5, 1, "
+               f"with {', '.join(variants)}")
+    say(3, f"B3 compact: equal to plain in all {n_cases} cases")
     return {"name": "B3 compact: compact_select", "route": "cuda",
             "source": "kmerset_tpu_torch/csrc/compact.cu",
             "replaces": "kmerset_tpu/ops/pallas_compact.py:118",

@@ -131,24 +131,25 @@ def build_log() -> str:
         return ""
 
 
+_P, _I64, _I32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+
+# Every extern "C" entry of csrc/*.cu: (argument types, result type).
+SIGNATURES = {
+    # packed, L, k, canonical, valid, out, n_out, stream
+    "kmerset_pack_canonical": ([_P, _I64, _I32, _I32, _P, _P, _I64, _P], _I32),
+    "kmerset_pack_canonical64": ([_P, _I64, _I32, _I32, _P, _P, _I64, _P], _I32),
+    # src0-2, dst0-2, width0-2, n_lanes, keep, n, scratch, scratch_words,
+    # n_sel, stream
+    "kmerset_compact": ([_P] * 6 + [_I32] * 4 + [_P, _I64, _P, _I64, _P, _P], _I32),
+    "kmerset_error_string": ([_I32], ctypes.c_char_p),
+}
+
+
 def _bind(lib: ctypes.CDLL) -> None:
-    p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-    sigs = {
-        # packed, L, k, canonical, valid, out, n_out, stream
-        "kmerset_pack_canonical": [p, i64, i32, i32, p, p, i64, p],
-        "kmerset_pack_canonical64": [p, i64, i32, i32, p, p, i64, p],
-        # keep, n, block_counts, stream
-        "kmerset_compact_count": [p, i64, p, p],
-        # src0-2, dst0-2, width0-2, n_lanes, keep, n, block_offsets, stream
-        "kmerset_compact_scatter": [p] * 6 + [i32] * 4 + [p, i64, p, p],
-        "kmerset_compact_tile": [],
-    }
-    for name, argtypes in sigs.items():
+    for name, (argtypes, restype) in SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-    lib.kmerset_error_string.argtypes = [i32]
-    lib.kmerset_error_string.restype = ctypes.c_char_p
+        fn.restype = restype
 
 
 def load() -> ctypes.CDLL:

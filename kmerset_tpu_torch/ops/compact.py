@@ -5,8 +5,9 @@ Where the TPU version needs sorted int32 lanes with flag-bit headroom and
 a length that is a multiple of its 8192-element row (it partitions each
 row with a sort first), this one takes any 1-3 int32 or int64 lanes of
 any length: on the reference's domain the kept prefix and n_sel are the
-same.  An int64 lane carries the k = 19/23 keys that the reference splits
-into (hi, lo) int32 lanes.
+same.  The kernel is one pass with decoupled look-back over tiles of
+TILE elements.  An int64 lane carries the k = 19/23 keys that the
+reference splits into (hi, lo) int32 lanes.
 """
 
 from __future__ import annotations
@@ -17,8 +18,9 @@ import torch
 
 MAX_LANES = 3
 LANE_DTYPES = (torch.int32, torch.int64)
+TILE = 4096  # elements per tile of csrc/compact.cu (kTile)
 
-# Wrapper calls that launched the kernels since the last reset.
+# Wrapper calls that launched the kernel since the last reset.
 launches = 0
 
 
@@ -65,7 +67,11 @@ def compact_select(
     trim them).  n_sel is a 0-dim int32 tensor on the lanes' device
     (reading it syncs).
 
-    A CUDA tensor runs kernel B3; a CPU tensor runs the plain version."""
+    A CUDA tensor runs kernel B3: one memset of its scratch and one
+    launch, reading `keep` once; any nonzero `keep` byte is kept.  Views
+    at any element offset are taken (the kernel reads a tensor that is not
+    16-byte aligned element by element).  A CPU tensor runs the plain
+    version."""
     n = _check(lanes, keep)
     dev = keep.device
     if dev.type == "cpu":
@@ -78,30 +84,24 @@ def compact_select(
     from . import _build
 
     lib = _build.load()
-    tile = lib.kmerset_compact_tile()
-    counts = torch.empty((n + tile - 1) // tile, dtype=torch.int32, device=dev)
+    n_sel = torch.empty((), dtype=torch.int32, device=dev)
+    # The tile counter, then one status word per tile (cleared by the entry).
+    scratch = torch.empty(1 + (n + TILE - 1) // TILE, dtype=torch.int64, device=dev)
     keep8 = keep.view(torch.uint8) if keep.dtype == torch.bool else keep
     pad = [None] * (MAX_LANES - len(lanes))
     srcs = [lane.data_ptr() for lane in lanes] + pad
     dsts = [out.data_ptr() for out in outs] + pad
     widths = [lane.element_size() for lane in lanes] + [0] * len(pad)
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
         _build.check(
             lib,
-            lib.kmerset_compact_count(keep8.data_ptr(), n, counts.data_ptr(), stream),
-            "compact count kernel",
-        )
-        inclusive = torch.cumsum(counts, 0, dtype=torch.int32)
-        offsets = inclusive - counts
-        _build.check(
-            lib,
-            lib.kmerset_compact_scatter(
+            lib.kmerset_compact(
                 *srcs, *dsts, *widths, len(lanes), keep8.data_ptr(), n,
-                offsets.data_ptr(), stream,
+                scratch.data_ptr(), scratch.shape[0], n_sel.data_ptr(),
+                torch.cuda.current_stream().cuda_stream,
             ),
-            "compact scatter kernel",
+            "compact kernel B3",
         )
     global launches
     launches += 1
-    return outs, inclusive[-1]
+    return outs, n_sel

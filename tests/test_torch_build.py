@@ -67,3 +67,28 @@ def test_build_failure_raises_and_leaves_no_library(fake_tree):
     assert "error: stop" in _build.build_log()
     assert not [f for f in os.listdir(os.path.dirname(out))
                 if f.endswith((".o", ".tmp", ".so"))]
+
+
+def _extern_entries():
+    """{name: parameter count} of every extern "C" function in csrc/*.cu."""
+    import re
+
+    found = {}
+    for src in _build._sources():
+        text = open(src).read()
+        for m in re.finditer(r'extern "C"[^(]*?\b(\w+)\(([^)]*)\)', text):
+            params = [p for p in m.group(2).split(",") if p.strip()]
+            found[m.group(1)] = len(params)
+    return found
+
+
+def test_bind_table_names_exactly_the_sources_entry_points():
+    """A renamed, added or removed entry, or one whose parameter count
+    changed, fails here and not only when the library loads on the card."""
+    entries = _extern_entries()
+    assert set(entries) == set(_build.SIGNATURES)
+    for name, (argtypes, _) in _build.SIGNATURES.items():
+        assert len(argtypes) == entries[name], name
+    assert "kmerset_compact" in entries
+    assert not {"kmerset_compact_count", "kmerset_compact_scatter",
+                "kmerset_compact_tile"} & set(entries)

@@ -99,3 +99,28 @@ def test_compact_int64_lane_beside_int32(frac):
     m = int(n_sel)
     np.testing.assert_array_equal(got[0].numpy()[:m], key[keep])
     np.testing.assert_array_equal(got[1].numpy()[:m], pos[keep])
+
+
+@pytest.mark.parametrize("lanes_kind", ["int32", "int64+int32", "int32x3"])
+@pytest.mark.parametrize("shift", ["keep", "lanes", "both"])
+def test_compact_takes_offset_views(lanes_kind, shift):
+    """Views at element offset 1 (not 16-byte aligned on the card, where
+    the kernel reads them element by element) are legal input; uint8 keep
+    bytes other than 0 and 1 count as kept."""
+    n = 5011
+    rng = np.random.default_rng(len(lanes_kind) + len(shift))
+    dtypes = {"int32": [np.int32], "int64+int32": [np.int64, np.int32],
+              "int32x3": [np.int32] * 3}[lanes_kind]
+    full = [rng.integers(-(1 << 31), (1 << 31) - 1, n + 1).astype(d) for d in dtypes]
+    flags = np.where(rng.random(n + 1) < 0.4, rng.integers(1, 256, n + 1), 0)
+    keep_full = torch.from_numpy(flags.astype(np.uint8))
+    keep = keep_full[1:] if shift in ("keep", "both") else keep_full[:n]
+    lanes = [torch.from_numpy(x)[1:] if shift in ("lanes", "both")
+             else torch.from_numpy(x)[:n] for x in full]
+    assert all(t.is_contiguous() for t in (*lanes, keep))
+    got, n_sel = compact.compact_select(lanes, keep)
+    mask = keep.numpy() != 0
+    assert int(n_sel) == int(mask.sum())
+    for g, x in zip(got, lanes):
+        assert g.dtype == x.dtype
+        np.testing.assert_array_equal(g.numpy()[: int(n_sel)], x.numpy()[mask])
