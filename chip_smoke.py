@@ -5,34 +5,50 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
 
     python3 chip_smoke.py
 
-It builds the port's CUDA kernels from the checkout's sources and holds
-each against its plain PyTorch version on the card: B1 (pack) at every
-k from 1 to 15 and B2 at every k from 16 to 23, canonical and forward,
-with and without `valid`, at n = 1, below one tile, a ragged last tile
-and 2^24 windows; B3 (the one-pass compaction) at n = 1, below one tile,
-a ragged tile, 5,000,011 and 2^24, keep fractions 0 to 1, 1 to 3 int32
-or int64 lanes, bool and uint8 keep, and views at element offset 1 (its
-element-by-element path); and the unitig graph front-end against itself
-on the CPU.  Each kernel is timed at the main path's shapes beside its
-bound (the bytes it must move over the card's 3.35 TB/s), its plain
+Phase 0 loads the native host library and prints which edition each side
+runs: the checkout's native/libkmerio.so, or, where that does not load,
+the port's serial edition of native/kmerio.c (built by
+kmerset_tpu_torch/_nativebuild.py, with its compile time).  It fails when
+neither loads: the machine has a C compiler, so the numpy fallbacks would
+be a fault here.  The reference's walk orders strings differently with
+and without the library, so its CLIs must run the same code: when the
+port runs the serial edition, the reference runs from a copy of its
+package under build/chip_smoke/ref_tree/ whose native/libkmerio.so is
+that edition, and a pre-flight subprocess there must load it.
+
+Then it builds the port's CUDA kernels from the checkout's sources, times
+one kmerset-build in a new process (its library load must find the
+edition built and compile nothing), and holds each kernel against its
+plain PyTorch version on the card: B1 (pack) at
+every k from 1 to 15 and B2 at every k from 16 to 31, canonical and
+forward, with and without `valid`, at n = 1, below one tile, a ragged
+last tile and 2^24 windows; B3 (the one-pass compaction) at n = 1, below
+one tile, a ragged tile, 5,000,011 and 2^24, keep fractions 0 to 1, 1 to
+3 int32 or int64 lanes, bool and uint8 keep, and views at element offset
+1 (its element-by-element path); and the unitig graph front-end against
+itself on the CPU.  Each kernel is timed at the main path's shapes beside
+its bound (the bytes it must move over the card's 3.35 TB/s), its plain
 version, its wrapper's host time per call and, for B3, the one PyTorch
 call that computes the same function (`lane[keep]` per lane), at the
-five shapes the count and decode launch.  Then it drives the
-port's `kmerset-build --check` on the card: run A (k = 15, a 2^24-base
-genome, cutoff 1), run C (k = 23, the same genome, cutoff 1) and run D
-(k = 19, ~3x-coverage reads of a 2^22-base genome, cutoff 2).  Each dump
-must be byte-identical to the reference CLI's host build of the same input
-(those run as subprocesses beside the port's runs), and each run must go
-through its kernels and the device graph front-end.  Then it checks the
-out-of-core paths (the chunked count and decode of runs A's and C's
-inputs, and the front-end in query chunks, each equal to its one-shot
-result, with the bytes per window behind the memory ceiling measured),
-the sketch table at 100 sets on the card against the CPU, and run M: the
-multi-set round trip (eight related strains built, jointly compressed,
-decompressed, `kmerset-stat` and `spss-benchmark`) through the port's
-CLIs on the card against the reference's host CLIs: byte-identical
-directories and DOT files, equal hashes, sizes, TSV and weights.  Inputs
-are made from fixed seeds under build/chip_smoke/.
+five shapes the count and decode launch.  Then it drives the port's
+`kmerset-build --check` on the card: run A (k = 15, a 2^24-base genome,
+cutoff 1), run C (k = 23, the same genome, cutoff 1), run D (k = 19,
+~3x-coverage reads of a 2^22-base genome, cutoff 2) and run E (k = 31,
+run A's genome, cutoff 1).  Each dump must be byte-identical to the
+reference CLI's host build of the same input (those run as subprocesses
+beside the port's runs), and each run must go through its kernels and the
+device graph front-end.  Then it checks the out-of-core paths (the
+chunked count of run A's input at k = 15, 23 and 31 and the decode of run
+C's dump, each equal to its one-shot result, with the bytes per window
+behind the memory ceiling measured; the front-end in query chunks and in
+its bounded mode, equal to one shot, with its bytes per k-mer measured),
+the sketch table at 100 sets on the card against the CPU, and runs M (k =
+15) and M31 (k = 31): the multi-set round trip (eight related strains
+built, jointly compressed, decompressed, `kmerset-stat` and
+`spss-benchmark`) through the port's CLIs on the card against the
+reference's host CLIs: byte-identical directories and DOT files, equal
+hashes, sizes, TSV and weights.  Inputs are made from fixed seeds under
+build/chip_smoke/.
 
 Each phase prints one line.  The line before the last is a JSON summary of
 the kernels; the last line is {"ok": true, "device": {...}}.  Any failure
@@ -52,6 +68,7 @@ import json
 import logging
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -125,6 +142,7 @@ def host_ms(torch, fn, calls: int = 100) -> float:
 
 
 def environment(torch) -> str:
+    from kmerset_tpu_torch.core import native
     from kmerset_tpu_torch.ops import _build, backend
 
     smi = subprocess.run(
@@ -142,9 +160,83 @@ def environment(torch) -> str:
            f"CUDA {torch.version.cuda}, device {torch.cuda.get_device_name(0)}")
     print(smi, flush=True)
     say(0, f"nvcc: {[l for l in nvcc if 'release' in l][-1]}; "
-           f"gcc: {gcc[0] if gcc else 'not found'}; "
-           f"libkmerio loaded: {backend.host_library_loaded()}")
+           f"gcc: {gcc[0] if gcc else 'not found'}")
+    t0 = time.perf_counter()
+    loaded = backend.host_library_loaded()
+    load_s = time.perf_counter() - t0
+    ed = native.edition()
+    if not loaded or ed is None:
+        raise AssertionError(
+            "no native host library loaded: neither native/libkmerio.so nor "
+            "the port's serial edition (is there a C compiler?)")
+    built = (f"compiled in {ed.build_s:.3f} s" if ed.build_s is not None
+             else "found built")
+    say(0, "port's libkmerio: " + (
+        f"serial edition (no OpenMP; --workers does nothing), {built}"
+        if ed.serial else "the checkout's native/libkmerio.so")
+        + f", {os.path.relpath(ed.path, ROOT)}; first load {load_s:.3f} s")
+    RefCli.cwd = reference_tree(ed)
+    ref = reference_edition(RefCli.cwd)
+    say(0, "reference's libkmerio (pre-flight subprocess in "
+           f"{os.path.relpath(RefCli.cwd, ROOT) or '.'}): loaded "
+           f"{ref['loaded']}, {os.path.relpath(ref['path'], RefCli.cwd)}, "
+           f"package {os.path.relpath(ref['package'], RefCli.cwd)}")
     return smi
+
+
+REF_TREE = os.path.join(WORK, "ref_tree")
+
+
+def reference_tree(ed) -> str:
+    """The directory the reference's CLIs run from.  With the checkout's
+    library loaded, the checkout's root.  With the serial edition, a copy
+    of the reference's package and native/{kmerio.c,Makefile} under
+    build/chip_smoke/ref_tree/, whose native/libkmerio.so is that edition,
+    newer than kmerio.c, so that the reference's own build step leaves it
+    as it is.  Nothing of the checkout's kmerset_tpu/ or native/ is
+    written to."""
+    if not ed.serial:
+        return ROOT
+    if os.path.isdir(REF_TREE):
+        shutil.rmtree(REF_TREE)
+    shutil.copytree(os.path.join(ROOT, "kmerset_tpu"),
+                    os.path.join(REF_TREE, "kmerset_tpu"),
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    os.makedirs(os.path.join(REF_TREE, "native"))
+    for name in ("kmerio.c", "Makefile"):
+        shutil.copy2(os.path.join(ROOT, "native", name),
+                     os.path.join(REF_TREE, "native", name))
+    lib = os.path.join(REF_TREE, "native", "libkmerio.so")
+    shutil.copyfile(ed.path, lib)
+    later = os.path.getmtime(os.path.join(REF_TREE, "native", "kmerio.c")) + 1
+    os.utime(lib, (later, later))
+    return REF_TREE
+
+
+_PREFLIGHT = (
+    "import json, kmerset_tpu\n"
+    "from kmerset_tpu.core import native\n"
+    "print(json.dumps({'loaded': native.get_lib() is not None,\n"
+    "                  'path': native._find_lib() or '',\n"
+    "                  'package': kmerset_tpu.__file__}))\n"
+)
+
+
+def reference_edition(cwd: str) -> dict:
+    """Which library the reference's CLIs load from `cwd`: a subprocess
+    with their environment.  Fails unless it loads that tree's
+    native/libkmerio.so."""
+    env = dict(os.environ, KMERSET_TPU_FORCE_BACKEND="host", JAX_PLATFORMS="cpu")
+    out = subprocess.run([sys.executable, "-c", _PREFLIGHT], cwd=cwd, env=env,
+                         capture_output=True, text=True, timeout=600)
+    if out.returncode != 0:
+        raise AssertionError(f"reference pre-flight failed:\n{out.stderr[-4000:]}")
+    ref = json.loads(out.stdout.strip().splitlines()[-1])
+    want = os.path.join(cwd, "native", "libkmerio.so")
+    if not ref["loaded"] or os.path.realpath(ref["path"]) != os.path.realpath(want) \
+            or not os.path.realpath(ref["package"]).startswith(os.path.realpath(cwd)):
+        raise AssertionError(f"the reference does not load {want}: {ref}")
+    return ref
 
 
 def build_kernels() -> float:
@@ -159,6 +251,51 @@ def build_kernels() -> float:
         if "Used" in line or "Compiling entry" in line or "spill" in line:
             say(1, "ptxas: " + line.split("ptxas info    :")[-1].strip())
     return dt
+
+
+_PORT_CLI = (
+    "import json, subprocess, sys, time\n"
+    "t0 = time.perf_counter()\n"
+    "import torch\n"
+    "from kmerset_tpu_torch.core import native\n"
+    "t1 = time.perf_counter()\n"
+    "ran, run = [], subprocess.run\n"
+    "subprocess.run = lambda args, **kw: ran.append(args[0]) or run(args, **kw)\n"
+    "ed = native.edition()\n"
+    "subprocess.run = run\n"
+    "t2 = time.perf_counter()\n"
+    "from kmerset_tpu_torch.cli import kmerset_build\n"
+    "kmerset_build.main(sys.argv[1:])\n"
+    "print(json.dumps({'import_s': t1 - t0, 'load_s': t2 - t1,\n"
+    "                  'cli_s': time.perf_counter() - t2, 'ran': ran,\n"
+    "                  'serial': ed.serial, 'build_s': ed.build_s}))\n"
+)
+
+
+def fresh_cli_process() -> None:
+    """The port's kmerset-build in a new process, as a user runs it, on a
+    2^20-base genome: its wall, its imports, and its native library's
+    load, which must find the library built and run no build (where the
+    OpenMP `make` failed in phase 0, its recorded failure skips it)."""
+    fasta = os.path.join(WORK, "small.fa")
+    write_genome_fasta(fasta, np.random.default_rng(SEED + 1), 1 << 20)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-c", _PORT_CLI, "--device", "cuda", "--k", "15",
+         "--check", "--out", os.path.join(WORK, "small_port.txt"), fasta],
+        cwd=ROOT, capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0 or "KmerSet: ok" not in proc.stdout + proc.stderr:
+        raise AssertionError(f"a fresh port CLI process failed:\n"
+                             f"{proc.stderr[-4000:]}")
+    info = json.loads(proc.stdout.strip().splitlines()[-1])
+    if info["build_s"] is not None or info["ran"]:
+        raise AssertionError(f"a fresh process built libkmerio again: {info}")
+    say(1, f"a fresh kmerset-build process (--k 15 --check, 2^20 bases): "
+           f"wall {wall:.3f} s; import of torch and the port "
+           f"{info['import_s']:.3f} s, libkmerio load {info['load_s']:.4f} s ("
+           + ("serial edition" if info["serial"] else "the checkout's library")
+           + f", found built, no build run), the CLI {info['cli_s']:.3f} s")
 
 
 def bound_ms(n_bytes: float, n_ops: float) -> Tuple[float, str]:
@@ -192,7 +329,7 @@ def check_pack(torch, rng, kernel: str, ks, timed) -> dict:
     window count in PACK_EDGES, and at 2^24 windows for each k in `timed`,
     canonical and forward, with and without `valid`; times it at 2^24
     windows beside its bound.  Returns its kernel-line entry, timed at
-    the first of `timed` (the main path's k = 15 or 23)."""
+    the first of `timed` (the main path's k = 15 or 31)."""
     from kmerset_tpu_torch.ops import pack
 
     err, main, n_cases = 0, None, 0
@@ -455,7 +592,10 @@ def _phase_times(lines) -> dict:
 
 class RefCli:
     """One reference CLI (`python -m kmerset_tpu.cli.<cli> ARGS`) pinned
-    to its host path, in a subprocess that runs beside the port's runs."""
+    to its host path, in a subprocess that runs beside the port's runs,
+    from `cwd` (phase 0 sets it: see reference_tree)."""
+
+    cwd = ROOT
 
     def __init__(self, tag: str, cli: str, args):
         self.out_log = open(os.path.join(WORK, f"{tag}_ref.out"), "w+")
@@ -465,7 +605,7 @@ class RefCli:
         self.t0 = time.perf_counter()
         self.proc = subprocess.Popen(
             [sys.executable, "-m", f"kmerset_tpu.cli.{cli}", *args],
-            stdout=self.out_log, stderr=self.err, env=env, cwd=ROOT,
+            stdout=self.out_log, stderr=self.err, env=env, cwd=self.cwd,
         )
 
     def wait_output(self, timeout: float) -> Tuple[str, str, float]:
@@ -611,16 +751,19 @@ def _timed(torch, fn):
 
 
 def check_out_of_core(torch, fasta_a: str, dump_c: str, sizes: dict) -> None:
-    """The chunked count (run A's genome at k = 15 and 23) and decode (run
-    C's dump) at a forced 2^22-window chunk, and the front-end on run C's
-    set at query_chunk = 2^22, each equal to its one-shot result; the
-    peak bytes per window and per queried k-mer held against the
-    constants that size the memory ceiling."""
+    """The chunked count (run A's genome at k = 15, 23 and 31) and decode
+    (run C's dump) at a forced 2^22-window chunk, and the front-end on run
+    C's set at query_chunk = 2^22 and in its bounded mode at a forced
+    small budget, each equal to its one-shot result; the peak bytes per
+    window, per queried k-mer and per k-mer held against the constants
+    that size the memory ceilings; and the front-end's two modes timed on
+    run C's and run E's sets (front_end_modes)."""
     from kmerset_tpu_torch.ops import backend, neighbors, unitigs
 
     chunk = 1 << 22
     codes, offsets = fasta_codes(fasta_a)
-    for k, tag in ((15, "run A"), (23, "run C")):
+    sets = {}
+    for k, tag in ((15, "run A"), (23, "run C"), (31, "run E")):
         n_windows = codes.size - k + 1
         one, peak = _peak_bytes(torch, lambda: backend.device_count(
             codes, offsets, k, True, device=DEVICE))
@@ -634,6 +777,7 @@ def check_out_of_core(torch, fasta_a: str, dump_c: str, sizes: dict) -> None:
         if one[0].size != sizes[k]:
             raise AssertionError(f"k={k}: {one[0].size} k-mers, {tag} "
                                  f"logged {sizes[k]}")
+        sets[tag] = one[0]
         per = peak / n_windows
         say(9, f"count k={k}, {n_windows} windows: chunked "
                f"({-(-n_windows // chunk)} chunks of 2^22) equal to one-shot "
@@ -676,15 +820,100 @@ def check_out_of_core(torch, fasta_a: str, dump_c: str, sizes: dict) -> None:
     if per > backend.FRONT_END_BYTES_PER_QUERY:
         raise AssertionError(f"front-end: {per:.2f} B/k-mer above the "
                              "ceiling's constant")
+    # The whole-set arrays of each mode, beside small query chunks whose
+    # share (at FRONT_END_BYTES_PER_QUERY) is taken off the peak.
+    q = 1 << 18
+    n = A.size
+    one, one_peak = _peak_bytes(torch, lambda: unitigs.device_unitig_succ(
+        A, k, device=DEVICE, query_chunk=q))
+    small = backend.FRONT_END_BYTES_PER_KMER * (n // 4)
+    if not backend.front_end_plan(n, small)[0]:
+        raise AssertionError("the forced budget does not plan the bounded mode")
+    bounded = []
+    spy = unitigs.bounded_unitig_succ
+    unitigs.bounded_unitig_succ = lambda *a: bounded.append(1) or spy(*a)
+    budget_of = backend.memory_budget
+    backend.memory_budget = lambda device: small
+    try:
+        (got, b_s), b_peak = _peak_bytes(torch, lambda: _timed(
+            torch, lambda: unitigs.device_unitig_succ(
+                A, k, device=DEVICE, query_chunk=q)))
+    finally:
+        backend.memory_budget = budget_of
+        unitigs.bounded_unitig_succ = spy
+    if bounded != [1]:
+        raise AssertionError("the forced budget did not run the bounded mode")
+    for name, g, w in zip(("succ", "term_l", "term_r", "both"), got, whole):
+        if g.dtype != w.dtype or not np.array_equal(g, w):
+            raise AssertionError(f"front-end in its bounded mode: {name} differs")
+    for g, w in zip(one, whole):
+        if not np.array_equal(g, w):
+            raise AssertionError("front-end at query_chunk 2^18 differs")
+    q_part = min(q, n) * backend.FRONT_END_BYTES_PER_QUERY
+    one_set = (one_peak - q_part) / n
+    b_set = (b_peak - q_part) / n
+    say(9, f"front-end k={k}, {n} k-mers, query_chunk 2^18: one-shot mode "
+           f"peak {one_peak / n:.2f} B/k-mer, whole-set arrays "
+           f"{one_set:.2f} B/k-mer past the chunk's "
+           f"{backend.FRONT_END_BYTES_PER_QUERY} B/query (ceiling uses "
+           f"{backend.FRONT_END_BYTES_PER_KMER}); bounded mode at a budget of "
+           f"{small} B ({-(-n // q)} chunks, two passes) bit for bit equal to "
+           f"one shot in {b_s:.4f} s, peak {b_peak / n:.2f} B/k-mer, whole-set "
+           f"arrays {b_set:.2f} B/k-mer")
+    if one_set > backend.FRONT_END_BYTES_PER_KMER:
+        raise AssertionError(f"front-end: {one_set:.2f} B/k-mer of whole-set "
+                             "arrays above the ceiling's constant")
+    if b_set > backend.BOUNDED_BYTES_PER_KMER:
+        raise AssertionError(f"front-end: {b_set:.2f} B/k-mer of the bounded "
+                             "mode's whole-set arrays above its constant")
+    for tag, k in (("run C", 23), ("run E", 31)):
+        front_end_modes(torch, sets[tag], k, tag)
     free, total = torch.cuda.mem_get_info()
     budget = backend.memory_budget(DEVICE)
+    ceiling = backend.front_end_ceiling(budget)
     say(9, f"ceiling: mem_get_info free {free} of {total} B, budget "
            f"{budget} B: one shot up to {backend.window_ceiling(15, budget)} "
            f"windows at int32 keys (k <= 15), "
-           f"{backend.window_ceiling(23, budget)} at int64 keys; front-end "
-           f"query chunks of {backend.query_chunk_kmers(budget)} k-mers.  "
-           "An input above the ceiling (~1.5 Gbases) is not run here: its "
-           "host parse on the numpy fallbacks would take minutes")
+           f"{backend.window_ceiling(23, budget)} at int64 keys (k = 19, 23, "
+           f"31); the front-end's one-shot mode up to {ceiling} k-mers "
+           f"(there in query chunks of "
+           f"{backend.front_end_plan(ceiling, budget)[1]}), the bounded mode "
+           "above.  An input above the count's ceiling (~1.5 Gbases) is not "
+           "run here")
+
+
+def front_end_modes(torch, A: np.ndarray, k: int, tag: str) -> None:
+    """The front-end's two modes on one set at their default query chunk
+    for the card's memory budget, in turns, upload and download included:
+    one shot (device_unitig_succ's plan for this set) and the bounded
+    mode, which the plan takes only above the ceiling.  Equal outputs."""
+    from kmerset_tpu_torch.ops import backend, unitigs
+
+    n = A.size
+    budget = backend.memory_budget(DEVICE)
+    bounded, q_one = backend.front_end_plan(n, budget)
+    if bounded:
+        raise AssertionError(f"{tag}'s set is above the front-end's ceiling")
+    q_b = max(1, min(n, backend.query_chunk_kmers(
+        budget - backend.BOUNDED_BYTES_PER_KMER * n)))
+    times = {"one shot": [], "bounded": []}
+    for _ in range(3):
+        one, secs = _timed(torch, lambda: unitigs.device_unitig_succ(
+            A, k, device=DEVICE))
+        times["one shot"].append(secs)
+        (got, _), secs = _timed(torch, lambda: unitigs.bounded_unitig_succ(
+            torch.from_numpy(A).to(DEVICE), k, q_b))
+        times["bounded"].append(secs)
+        for name, g, w in zip(("succ", "term_l", "term_r", "both"), got, one):
+            if g.dtype != w.dtype or not np.array_equal(g, w):
+                raise AssertionError(f"{tag}: bounded mode's {name} differs")
+    say(9, f"front-end modes on {tag}'s set (k = {k}, {n} k-mers), s, upload "
+           f"and download included, in turns: one shot "
+           f"({-(-n // q_one)} query chunk(s)) "
+           + ", ".join(f"{t:.4f}" for t in times["one shot"])
+           + f"; bounded ({-(-n // q_b)} chunk(s), two passes) "
+           + ", ".join(f"{t:.4f}" for t in times["bounded"])
+           + "; equal outputs")
 
 
 def check_sketch(torch, rng) -> None:
@@ -748,60 +977,67 @@ _DEFERRED = re.compile(r"deferred SPSS build ([\d.]+) s")
 _ORACLE = re.compile(r"sketch table on (\S+) ([\d.]+) s \((\d+) pair")
 
 
-def run_m(torch, rng) -> dict:
-    """Eight related strains built, then compressed, decompressed, stat'd
-    and spss-benchmarked through the port's CLIs on the card, each against
+def write_strains(rng):
+    """Eight related strains of one random genome (M_BASES // 500
+    substitutions each), as FASTA files under WORK."""
+    base = rng.integers(0, 4, M_BASES, dtype=np.uint8)
+    fastas = []
+    for i in range(M_SETS):
+        mut = base.copy()
+        pos = rng.integers(0, M_BASES, M_BASES // 500)
+        mut[pos] = rng.integers(0, 4, pos.size, dtype=np.uint8)
+        fastas.append(os.path.join(WORK, f"m{i}.fa"))
+        with open(fastas[-1], "wb") as f:
+            for j in range(0, M_BASES, 10_000):
+                f.write(b">m%d_%d\n" % (i, j) + _BASES[mut[j:j + 10_000]].tobytes()
+                        + b"\n")
+    return fastas
+
+
+def run_m(torch, tag: str, k: int, fastas) -> dict:
+    """The strains built at k, then compressed, decompressed, stat'd and
+    spss-benchmarked through the port's CLIs on the card, each against
     the reference's CLI on the host."""
     from kmerset_tpu_torch.cli import (kmerset_build, kmerset_multiple_compress,
                                        kmerset_multiple_decompress,
                                        kmerset_stat, spss_benchmark)
     from kmerset_tpu_torch.ops import compact, pack
 
-    tag = "11 run M"
-    base = rng.integers(0, 4, M_BASES, dtype=np.uint8)
-    fastas, sets = [], []
-    for i in range(M_SETS):
-        mut = base.copy()
-        pos = rng.integers(0, M_BASES, M_BASES // 500)
-        mut[pos] = rng.integers(0, 4, pos.size, dtype=np.uint8)
-        fastas.append(os.path.join(WORK, f"m{i}.fa"))
-        sets.append(os.path.join(WORK, f"m{i}.txt"))
-        with open(fastas[-1], "wb") as f:
-            for j in range(0, M_BASES, 10_000):
-                f.write(b">m%d_%d\n" % (i, j) + _BASES[mut[j:j + 10_000]].tobytes()
-                        + b"\n")
-    port_dir, ref_dir = (os.path.join(WORK, d) for d in ("M_port", "M_ref"))
+    K = str(k)
+    sets = [os.path.join(WORK, f"m{i}_k{k}.txt") for i in range(len(fastas))]
+    port_dir, ref_dir = (os.path.join(WORK, f"M{k}_{d}") for d in ("port", "ref"))
+    rtag = f"m{k}"
     pack.launches = pack.launches_pair = compact.launches = 0
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     for fa, out in zip(fastas, sets):
-        kmerset_build.main(["--device", DEVICE, "--k", "15", "--cutoff", "1",
+        kmerset_build.main(["--device", DEVICE, "--k", K, "--cutoff", "1",
                             "--out", out, fa])
     build_s = time.perf_counter() - t0
     refs = {
-        "compress": RefCli("m_compress", "kmerset_multiple_compress", [
-            "--k", "15", "--seed", "1", "--out", ref_dir, "--out_graph",
+        "compress": RefCli(f"{rtag}_compress", "kmerset_multiple_compress", [
+            "--k", K, "--seed", "1", "--out", ref_dir, "--out_graph",
             ref_dir + ".dot", *sets]),
-        "stat": RefCli("m_stat", "kmerset_stat", ["--k", "15", *sets]),
-        "bench": RefCli("m_bench", "spss_benchmark", ["--k", "15", sets[0]]),
+        "stat": RefCli(f"{rtag}_stat", "kmerset_stat", ["--k", K, *sets]),
+        "bench": RefCli(f"{rtag}_bench", "spss_benchmark", ["--k", K, sets[0]]),
     }
     try:
         _, comp_log, comp_s = _capture_run(kmerset_multiple_compress, [
-            "--device", DEVICE, "--k", "15", "--seed", "1", "--workers", "4",
+            "--device", DEVICE, "--k", K, "--seed", "1", "--workers", "4",
             "--out", port_dir, "--out_graph", port_dir + ".dot", *sets])
         _, dec_log, dec_s = _capture_run(kmerset_multiple_decompress, [
-            "--device", DEVICE, "--k", "15", port_dir])
+            "--device", DEVICE, "--k", K, port_dir])
         stat_out, _, stat_s = _capture_run(kmerset_stat, [
-            "--device", DEVICE, "--k", "15", *sets])
+            "--device", DEVICE, "--k", K, *sets])
         bench_out, _, bench_s = _capture_run(spss_benchmark, [
-            "--device", DEVICE, "--k", "15", sets[0]])
+            "--device", DEVICE, "--k", K, sets[0]])
         launches = {"B1": pack.launches, "B2": pack.launches_pair,
                     "B3": compact.launches}
         peak_gib = torch.cuda.max_memory_allocated() / (1 << 30)
         _, _, ref_comp_s = refs["compress"].wait_output(900)
-        refs["decompress"] = RefCli("m_decompress",
+        refs["decompress"] = RefCli(f"{rtag}_decompress",
                                     "kmerset_multiple_decompress",
-                                    ["--k", "15", ref_dir])
+                                    ["--k", K, ref_dir])
         ref_stat, _, _ = refs["stat"].wait_output(900)
         ref_bench, ref_bench_err, _ = refs["bench"].wait_output(900)
         _, ref_dec_err, ref_dec_s = refs["decompress"].wait_output(900)
@@ -811,40 +1047,40 @@ def run_m(torch, rng) -> dict:
 
     names = sorted(os.listdir(port_dir))
     if names != sorted(os.listdir(ref_dir)) or "meta.txt" not in names:
-        raise AssertionError(f"run M: directories hold other files: {names}")
+        raise AssertionError(f"{tag}: directories hold other files: {names}")
     match, mismatch, errors = filecmp.cmpfiles(port_dir, ref_dir, names,
                                                shallow=False)
     if mismatch or errors or not filecmp.cmp(port_dir + ".dot",
                                              ref_dir + ".dot", shallow=False):
-        raise AssertionError(f"run M: files differ: {mismatch + errors} "
+        raise AssertionError(f"{tag}: files differ: {mismatch + errors} "
                              "(or the DOT files)")
     dec = [m.groups() for m in map(_HASH_SIZE.search,
                                    (msg for _, msg in dec_log)) if m]
     if dec != _HASH_SIZE.findall(ref_dec_err):
-        raise AssertionError("run M: decompressed Hash()/Size() differ")
+        raise AssertionError(f"{tag}: decompressed Hash()/Size() differ")
     if stat_out != ref_stat:
-        raise AssertionError("run M: kmerset-stat TSV differs")
+        raise AssertionError(f"{tag}: kmerset-stat TSV differs")
     for i, row in enumerate(stat_out.splitlines()):
         _, _, size, hash_ = row.split("\t")
         if dec[2 * i : 2 * i + 2] != [("Hash", hash_), ("Size", size)]:
-            raise AssertionError(f"run M: set {i} decompressed to another set")
+            raise AssertionError(f"{tag}: set {i} decompressed to another set")
     p, r = bench_out.split(), ref_bench.split()
     if len(p) != 8 or [p[i] for i in (1, 3, 5, 7)] != [r[i] for i in (1, 3, 5, 7)] \
             or p[3] != "1" or p[7] != "1":
-        raise AssertionError(f"run M: spss-benchmark {p} against {r}")
-    for name in ("B1", "B3"):
+        raise AssertionError(f"{tag}: spss-benchmark {p} against {r}")
+    for name in ("B1" if k == 15 else "B2", "B3"):
         if launches[name] <= 0:
-            raise AssertionError(f"run M: kernel {name} was not launched")
+            raise AssertionError(f"{tag}: kernel {name} was not launched")
     msgs = [m for _, m in comp_log]
     builds = [float(m.group(1)) for m in map(_DEFERRED.search, msgs) if m]
     oracle = [m.groups() for m in map(_ORACLE.search, msgs) if m]
     if not builds or len(oracle) != 1 or not oracle[0][0].startswith(DEVICE):
-        raise AssertionError(f"run M: deferred builds {builds}, oracle {oracle}")
+        raise AssertionError(f"{tag}: deferred builds {builds}, oracle {oracle}")
     sizes = [int(l.split("\t")[2]) for l in stat_out.splitlines()]
     w_in = sum(os.path.getsize(f) for f in sets)
     w_out = sum(os.path.getsize(os.path.join(port_dir, n)) for n in names
                 if n != "meta.txt")
-    say(tag, f"{M_SETS} strains of a {M_BASES}-base genome "
+    say(tag, f"--k {k}: {M_SETS} strains of a {M_BASES}-base genome "
              f"({M_BASES // 500} substitutions each), {min(sizes)}-"
              f"{max(sizes)} k-mers: directory ({len(names)} files) and DOT "
              f"byte-identical to the reference CLI's; decompressed "
@@ -892,10 +1128,11 @@ def main() -> int:
     log.addHandler(echo)
     environment(torch)
     build_kernels()
+    fresh_cli_process()
     rng = np.random.default_rng(SEED)
     kernels = [
         check_pack(torch, rng, "B1", range(1, 16), (15,)),
-        check_pack(torch, rng, "B2", range(16, 24), (23, 19)),
+        check_pack(torch, rng, "B2", range(16, 32), (31, 23, 19)),
         check_compact(torch, rng),
     ]
     check_front_end(torch, rng)
@@ -906,7 +1143,8 @@ def main() -> int:
     write_reads_fasta(fasta_d, rng, 1 << 22, 3.0)
     plan = (("5 run A", fasta_a, 15, 1, ("B1", "B3")),
             ("6 run C", fasta_a, 23, 1, ("B2", "B3")),
-            ("7 run D", fasta_d, 19, 2, ("B2", "B3")))
+            ("7 run D", fasta_d, 19, 2, ("B2", "B3")),
+            ("12 run E", fasta_a, 31, 1, ("B2", "B3")))
     refs = [RefRun(tag.split()[-1], fasta, k, cutoff)
             for tag, fasta, k, cutoff, _ in plan]
     try:
@@ -917,9 +1155,12 @@ def main() -> int:
             ref.kill()
 
     check_out_of_core(torch, fasta_a, os.path.join(WORK, f"{plan[1][0]}_port.txt"),
-                      {15: runs[0]["size"], 23: runs[1]["size"]})
+                      {15: runs[0]["size"], 23: runs[1]["size"],
+                       31: runs[3]["size"]})
     check_sketch(torch, rng)
-    runs.append(run_m(torch, rng))
+    strains = write_strains(rng)
+    runs.append(run_m(torch, "11 run M", 15, strains))
+    runs.append(run_m(torch, "13 run M31", 31, strains))
 
     for kern in kernels:
         name = kern["name"].split()[0]
@@ -932,7 +1173,7 @@ def main() -> int:
                 if m == "kmerset_tpu" or m.startswith("kmerset_tpu.")]
     if ref_mods:
         raise AssertionError(f"the JAX package was imported: {ref_mods}")
-    say(8, "launch counts over runs A, C, D and M: " + ", ".join(
+    say(8, "launch counts over runs A, C, D, E, M and M31: " + ", ".join(
         f"{k['name'].split()[0]} {k['launches']}" for k in kernels)
         + "; neither jax nor kmerset_tpu in sys.modules; "
         f"{time.perf_counter() - t_start:.1f} s")

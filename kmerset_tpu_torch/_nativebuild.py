@@ -1,8 +1,20 @@
 """Best-effort on-demand build of the native layer (native/Makefile).
 
-The port's copy of kmerset_tpu/_nativebuild.py:1-80, unchanged but for
-this paragraph: both packages build and load the same C library,
-native/kmerio.c at the root of the checkout, which belongs to neither.
+The port's copy of kmerset_tpu/_nativebuild.py:1-80 (ensure_built), and
+the port's own serial edition of the same library (build_serial).  Both
+packages build and load the same C source, native/kmerio.c at the root
+of the checkout, which belongs to neither.
+
+The serial edition: native/Makefile forces -fopenmp, and a machine whose
+compiler has no OpenMP runtime cannot build native/libkmerio.so.
+kmerio.c guards its OpenMP calls with #ifdef _OPENMP, so the same source
+built without -fopenmp is the same code on one thread, linked against
+libc alone; --workers (kmerio_set_threads) does nothing in it.
+build_serial compiles it into build/kmerset_tpu_torch/ at the root of
+the checkout (git-ignored), named by a hash of kmerio.c and the flags,
+once per process and under a file lock, as ops/_build.py builds the
+kernels.  core/native.py loads it when native/libkmerio.so is missing
+or does not load.
 
 The reference ships its native code through a CMake build the user runs
 explicitly (reference: CMakeLists.txt:41-50, README.md:196-205).  Here the
@@ -12,16 +24,28 @@ checkout silently running 10-50x slower (and, worse, exercising different
 code paths than CI) is a trap.  This module closes it: when the shared
 library is missing or older than its C source, it runs `make -C native
 <target>` once, serialized across processes with an exclusive file lock,
-and stays silent on any failure.
+and stays silent on any failure.  A failed `make` is recorded in
+build/kmerset_tpu_torch/, so that later processes go straight to the
+serial edition until the Makefile, the source or the compiler changes.
 """
 
 from __future__ import annotations
 
+import hashlib
 import os
+import shutil
 import subprocess
-from typing import Sequence
+import time
+from typing import Optional, Sequence, Tuple
 
 _ATTEMPTED: set = set()
+BUILD_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+    "build", "kmerset_tpu_torch",
+)
+SERIAL_FLAGS = ["-O3", "-fPIC", "-shared", "-Wno-unknown-pragmas"]
+# build_serial's result in this process: (path or None, compile seconds).
+_SERIAL: dict = {}
 
 
 def _native_dir() -> str:
@@ -36,7 +60,8 @@ def ensure_built(target: str, sources: Sequence[str]) -> None:
     builds, and build errors all degrade to "library unavailable", which
     every caller already handles.  At most one attempt per process per
     target (the pytest suite and the CLIs spawn many subprocesses; each
-    re-checks mtimes cheaply and only the first stale one pays the make).
+    re-checks mtimes cheaply and only the first stale one pays the make),
+    and none after a recorded failure (_make_failed_path).
     """
     if target in _ATTEMPTED or os.environ.get("KMERSET_TPU_NO_AUTOBUILD"):
         return
@@ -56,6 +81,9 @@ def ensure_built(target: str, sources: Sequence[str]) -> None:
         return any(os.path.getmtime(s) > t_tgt for s in srcs)
 
     if not _stale():
+        return
+    failed = _make_failed_path(target, srcs)
+    if failed is None or os.path.exists(failed):
         return
     lock_path = os.path.join(ndir, ".build.lock")
     try:
@@ -78,5 +106,84 @@ def ensure_built(target: str, sources: Sequence[str]) -> None:
                 timeout=300,
                 check=False,
             )
+            if _stale():
+                os.makedirs(BUILD_DIR, exist_ok=True)
+                open(failed, "w").close()
     except Exception:  # noqa: BLE001 - the fallback paths are complete
         pass
+
+
+def _make_failed_path(target: str, srcs: Sequence[str]) -> Optional[str]:
+    """The file that records a failed `make` of `target`, named by a hash
+    of the Makefile, the sources and the compiler (`$CC`, else `cc`: its
+    path, size and mtime), so that a later process skips the same doomed
+    build (the OpenMP build where the compiler has no OpenMP runtime,
+    several seconds) and tries again only when one of them changes.
+    Delete build/kmerset_tpu_torch/ to try again after installing a
+    runtime.  None when a file cannot be read."""
+    h = hashlib.sha256(target.encode())
+    try:
+        for path in (os.path.join(_native_dir(), "Makefile"), *srcs):
+            with open(path, "rb") as f:
+                h.update(f.read())
+        cc = shutil.which(os.environ.get("CC") or "cc")
+        if cc is not None:
+            st = os.stat(cc)
+            h.update(f"{os.path.realpath(cc)} {st.st_size} {st.st_mtime_ns}".encode())
+    except OSError:
+        return None
+    return os.path.join(BUILD_DIR, f"make_failed_{h.hexdigest()[:16]}")
+
+
+def serial_library_path() -> str:
+    """Where the serial edition of the current native/kmerio.c lives."""
+    h = hashlib.sha256(" ".join(SERIAL_FLAGS).encode())
+    with open(os.path.join(_native_dir(), "kmerio.c"), "rb") as f:
+        h.update(f.read())
+    return os.path.join(BUILD_DIR, f"libkmerio_serial_{h.hexdigest()[:16]}.so")
+
+
+def build_serial() -> Tuple[Optional[str], Optional[float]]:
+    """(path, compile seconds) of the serial edition, compiled first if
+    it is not there: seconds is None when it was already built.  (None,
+    None) when there is no kmerio.c, no C compiler (`$CC`, else `cc`) or
+    the compile fails; the callers then take their numpy paths.  One
+    attempt per process."""
+    if "result" in _SERIAL:
+        return _SERIAL["result"]
+    _SERIAL["result"] = (None, None)
+    if os.environ.get("KMERSET_TPU_NO_AUTOBUILD"):
+        return _SERIAL["result"]
+    try:
+        out = serial_library_path()
+    except OSError:  # no native/kmerio.c
+        return _SERIAL["result"]
+    if os.path.isfile(out):
+        _SERIAL["result"] = (out, None)
+        return _SERIAL["result"]
+    try:
+        import fcntl
+
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        with open(os.path.join(BUILD_DIR, ".native.lock"), "a+") as lock:
+            fcntl.flock(lock, fcntl.LOCK_EX)
+            secs = None
+            if not os.path.isfile(out):  # not built while we waited
+                tmp = f"{out}.{os.getpid()}.tmp"
+                t0 = time.perf_counter()
+                proc = subprocess.run(
+                    [os.environ.get("CC") or "cc", *SERIAL_FLAGS, "-o", tmp,
+                     os.path.join(_native_dir(), "kmerio.c")],
+                    stdout=subprocess.DEVNULL, stderr=subprocess.DEVNULL,
+                    timeout=300, check=False,
+                )
+                if proc.returncode != 0:
+                    if os.path.exists(tmp):
+                        os.unlink(tmp)
+                    return _SERIAL["result"]
+                os.replace(tmp, out)
+                secs = time.perf_counter() - t0
+        _SERIAL["result"] = (out, secs)
+    except (OSError, subprocess.SubprocessError):  # no compiler, no disk
+        pass
+    return _SERIAL["result"]

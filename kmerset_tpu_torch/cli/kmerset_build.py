@@ -3,13 +3,13 @@ SPSS-compressed k-mer set file.
 
 Same flags and log lines as kmerset_tpu/cli/kmerset_build.py, plus
 --device (default cuda; a missing CUDA device is an error, never a quiet
-CPU run).  It takes k = 15, 19 and 23 (k = 31, which the reference also
-takes, exits 1).  Counting and the --check decode run on the device
-through the port's kernels (B1 for k = 15, B2 for k = 19 and 23, then
-B3), and so does the canonical SPSS build's unitig graph front-end; the
-cutoff filter, the chain walk, the string emission, the path cover and
-the dump run on the host, in the port's copy of the reference's code.  There is no multi-process
-bring-up (multi-GPU is ROADMAP A.8).
+CPU run).  It takes the reference's k = 15, 19, 23 and 31.  Counting and
+the --check decode run on the device through the port's kernels (B1 for
+k = 15, B2 for k = 19, 23 and 31, then B3), and so does the canonical
+SPSS build's unitig graph front-end; the cutoff filter, the chain walk,
+the string emission, the path cover and the dump run on the host, in the
+port's copy of the reference's code.  There is no multi-process bring-up
+(multi-GPU is ROADMAP A.8).
 """
 
 from __future__ import annotations

@@ -4,7 +4,8 @@ The port's copy of kmerset_tpu/core/graph.py:31-198 (pointer_double,
 handshake_matching, expand_ranges, filter_groups), without the mesh hook
 of handshake_matching (:121-129; the port has no mesh yet, ROADMAP A.8)
 and without permute_groups and led_group_selection (:201-242), which
-only the reference's multi-device code calls.
+only the reference's multi-device code calls.  pointer_double's size
+guard raises ValueError where the reference asserts.
 
 These replace the reference's three inherently sequential/lock-based
 mechanisms with log-depth, vectorizable iterations:
@@ -63,7 +64,10 @@ def pointer_double(succ: np.ndarray, labels: np.ndarray | None = None
     if n == 0:
         e = np.empty(0, np.int64)
         return e, e.copy(), np.empty(0, bool), (labels.copy() if labels is not None else None)
-    assert n < (1 << 31)
+    if n >= 1 << 31:  # not an assert, which python -O strips
+        raise ValueError(
+            f"pointer_double packs node ids into 31 bits; {n} nodes do not fit"
+        )
     ids = np.arange(n, dtype=np.int64)
     done0 = succ < 0
     p0 = np.where(done0, ids, succ)

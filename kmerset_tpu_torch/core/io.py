@@ -1,6 +1,9 @@
 """Line IO with optional external (de)compressor subprocesses.
 
-The port's copy of kmerset_tpu/core/io.py:1-150, unchanged.
+The port's copy of kmerset_tpu/core/io.py:1-150, but for one change:
+read_lines turns a decode error of input that is not UTF-8 into IOError_,
+with the decoder's own message, which is the text the reference's CLIs log
+when they catch it (kmerset_tpu/cli/kmerset_build.py:60).
 
 Mirrors the reference's popen-based pipe trick (reference:
 lib/core/io.h:20-126): when a compressor/decompressor command string is
@@ -26,16 +29,19 @@ class IOError_(Exception):
 def read_lines(file_name: str, decompressor: str = "") -> List[str]:
     """Reads lines; pipes through `decompressor < file` if non-empty
     (reference: lib/core/io.h:20-73)."""
-    if not decompressor:
-        # Text mode (newline translation) — the byte helper below is
-        # binary; plain-file line reads keep the text-mode contract.
-        try:
-            with open(file_name, "r") as f:
-                data = f.read()
-        except OSError as e:
-            raise IOError_(f"failed to open file: {file_name}") from e
-    else:
-        data = read_file_bytes(file_name, decompressor).decode()
+    try:
+        if not decompressor:
+            # Text mode (newline translation) — the byte helper below is
+            # binary; plain-file line reads keep the text-mode contract.
+            try:
+                with open(file_name, "r") as f:
+                    data = f.read()
+            except OSError as e:
+                raise IOError_(f"failed to open file: {file_name}") from e
+        else:
+            data = read_file_bytes(file_name, decompressor).decode()
+    except UnicodeDecodeError as e:
+        raise IOError_(str(e)) from e
     if data.endswith("\n"):
         data = data[:-1]
     if data == "":

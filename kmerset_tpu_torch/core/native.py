@@ -22,8 +22,11 @@ walk, the numpy sort after the partitioned join).  Both packages load
 the same library, native/libkmerio.so at the root of the checkout, built
 from that checkout's kmerio.c on first use (the port's copy of the build
 step, kmerset_tpu_torch/_nativebuild.py), so here a library that lacks
-any of the functions counts as absent and every caller takes its numpy
-path.
+any of the functions counts as absent.  When that library is missing,
+does not load or fails the ABI check, the port loads its serial edition
+of the same source (_nativebuild.build_serial: no OpenMP, so --workers
+does nothing); edition() says which one is loaded.  Only when neither
+loads does every caller take its numpy path.
 Also left out: the partitioned side-table edition, which serves
 canonical sets only (the port builds those on its device), and the
 KMERSET_TPU_NO_PART switch of the partitioned overlap join (its output is
@@ -35,12 +38,25 @@ from __future__ import annotations
 import ctypes
 import os
 import threading
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 
 _LIB: Optional[ctypes.CDLL] = None
 _TRIED = False
+
+
+class Edition(NamedTuple):
+    """The loaded library: its path, whether it is the port's serial
+    edition, and the seconds this process spent compiling it (None when
+    it found it built)."""
+
+    path: str
+    serial: bool
+    build_s: Optional[float]
+
+
+_EDITION: Optional[Edition] = None
 
 _i64p = ctypes.POINTER(ctypes.c_int64)
 _i32p = ctypes.POINTER(ctypes.c_int32)
@@ -128,21 +144,15 @@ def get_lib() -> Optional[ctypes.CDLL]:
         return _get_lib_locked()
 
 
-def _get_lib_locked() -> Optional[ctypes.CDLL]:
-    """First-use load/build under _GET_LIB_LOCK: without it, a thread
-    arriving during another's in-flight `make` (up to 300 s on a fresh
-    checkout) would see _TRIED=True with _LIB still None and silently
-    run a whole phase on the 10-50x slower numpy fallback."""
-    global _LIB, _TRIED
-    if _TRIED:  # the thread that held the lock finished the load
-        return _LIB
-    _TRIED = True
-    # Fresh/stale checkouts: build the library on first use rather than
-    # silently running the (complete but slower) fallback paths.
-    from .._nativebuild import ensure_built
+def edition() -> Optional[Edition]:
+    """Which library get_lib() loaded, or None when none loaded."""
+    get_lib()
+    return _EDITION
 
-    ensure_built("libkmerio.so", ["kmerio.c"])
-    path = _find_lib()
+
+def _load(path: Optional[str]) -> Optional[ctypes.CDLL]:
+    """The library at `path` with every binding declared, or None when
+    it does not load or fails the ABI check."""
     if path is None:
         return None
     try:
@@ -156,18 +166,43 @@ def _get_lib_locked() -> Optional[ctypes.CDLL]:
         # any ABI mismatch disables the lib entirely — rebuild with
         # `make -C native`.
         if lib.kmerio_abi_version() == 3:
-            _LIB = lib
-    except (OSError, AttributeError):  # missing lib or stale build
-        _LIB = None
+            return lib
+    except (OSError, AttributeError):  # not a library, or a stale build
+        pass
+    return None
+
+
+def _get_lib_locked() -> Optional[ctypes.CDLL]:
+    """First-use load/build under _GET_LIB_LOCK: without it, a thread
+    arriving during another's in-flight `make` (up to 300 s on a fresh
+    checkout) would see _TRIED=True with _LIB still None and silently
+    run a whole phase on the 10-50x slower numpy fallback."""
+    global _LIB, _TRIED, _EDITION
+    if _TRIED:  # the thread that held the lock finished the load
+        return _LIB
+    _TRIED = True
+    # Fresh/stale checkouts: build the library on first use rather than
+    # silently running the (complete but slower) fallback paths.
+    from .._nativebuild import build_serial, ensure_built
+
+    ensure_built("libkmerio.so", ["kmerio.c"])
+    path = _find_lib()
+    _LIB = _load(path)
+    if _LIB is not None:
+        _EDITION = Edition(path, False, None)
+        return _LIB
+    path, secs = build_serial()
+    _LIB = _load(path)
+    _EDITION = Edition(path, True, secs) if _LIB is not None else None
     return _LIB
 
 
 def set_threads(n: int) -> bool:
     """Sizes the native OpenMP pool from the CLI --workers flag
     (reference thread-pool sizing, lib/flags.h:25-53; default 1 keeps the
-    reference's single-threaded default).  Returns False when the native
-    library is unavailable (the NumPy fallbacks are single-threaded
-    anyway)."""
+    reference's single-threaded default); a no-op in the serial edition,
+    which has no pool.  Returns False when the native library is
+    unavailable (the NumPy fallbacks are single-threaded anyway)."""
     lib = get_lib()
     if lib is None:
         return False

@@ -2,19 +2,22 @@
 //
 // B1 (k <= 15) replaces kmerset_tpu/ops/pallas_pack.py:34 (_kernel, called
 // through _call and canonical_windows_pallas from ops/count.py:
-// _single_windows); B2 (15 < k <= 23) replaces pallas_pack.py:85
+// _single_windows); B2 (15 < k <= 31) replaces pallas_pack.py:85
 // (_pair_kernel, through _pair_call and canonical_windows_pair_pallas from
-// ops/count.py:_pair_windows).  Both are one template on the key type.
+// ops/count.py:_pair_windows) for k <= 23, and the reference's XLA
+// ops/count.py:_int64_windows above.  Both are one template on the key
+// type.
 // For every window start p < L - k + 1 it writes
 //     fwd = codes[p] .. codes[p+k-1], 2 bits per base, first base highest
 //     rc  = 3-codes[p+k-1] .. 3-codes[p], the reverse complement, same order
 //     out = min(fwd, rc)   (or fwd alone when canonical == 0)
-// B1 writes an int32 of 2k <= 30 bits.  B2 writes one int64 of 2k <= 46
-// bits where the TPU kernel wrote (hi, lo) int32 lanes: the key is
-// (hi << 2*klo) | lo, the reference's own combination (ops/count.py:
-// canonical_windows), and its integer order is the lanes' lexicographic
-// order, so the TPU kernel's (hi, lo) strand compare is the plain min here
-// and one int64 sort replaces the two-key sort.  Two steps of the
+// B1 writes an int32 of 2k <= 30 bits.  B2 writes one int64 of 2k <= 62
+// bits, below its sentinel 2^62.  Up to k = 23 the TPU kernel wrote (hi,
+// lo) int32 lanes instead: the key is (hi << 2*klo) | lo, the reference's
+// own combination (ops/count.py:canonical_windows), and its integer order
+// is the lanes' lexicographic order, so the TPU kernel's (hi, lo) strand
+// compare is the plain min here and one int64 sort replaces the two-key
+// sort.  Two steps of the
 // reference pipeline are fused in: the codes are read in their 2-bit
 // packed upload form (four bases per byte, low bits first:
 // ops/count.py:_unpack2), and a window whose `valid` byte is 0 gets the
@@ -34,9 +37,12 @@
 //   lowest pair.  The reverse complement is ~x & mask(2k); the forward key
 //   is x's 2-bit pairs in reverse order: __brev, a swap of the two bits of
 //   every pair, and a shift right by (word bits - 2k).  A window's span
-//   starts inside one 32-bit word of 16 codes and ends at most 2*15 + 46 =
-//   76 bits later, so two funnel shifts over three consecutive words of
-//   the staged tile give x.
+//   starts at bit 2*(p mod 16) <= 30 of one 32-bit word of 16 codes and
+//   ends at most 30 + 62 = 92 <= 96 bits past that word's start at k = 31,
+//   so two funnel shifts (amounts 2*(p mod 16) < 32) over three
+//   consecutive words of the staged tile give x.  At k = 31, mask(62) =
+//   2^62 - 1, the forward key's shift is 64 - 62 = 2, and every key and
+//   its reverse complement stay below the sentinel 2^62.
 // - Wide accesses.  A thread makes 16 B of keys per step (4 int32 keys or
 //   2 int64 keys, consecutive windows) and writes them with one 16-byte
 //   store; the 32 threads of a warp write 512 contiguous bytes.  Its valid
@@ -49,9 +55,9 @@
 // - Edges.  Copies past the end of `packed` or `valid` are zero-filled
 //   (cp.async's source size), so a ragged last tile, n below one tile and
 //   packed lengths that are not a multiple of 16 need no special path; the
-//   16-byte halo past each tile's packed bytes holds the k - 1 codes that
-//   cross into the next tile.  The last group of a ragged tile is stored
-//   key by key.  The wrapper (ops/pack.py) requires `packed`, `valid` and
+//   16-byte halo past each tile's packed bytes (64 codes) holds the k - 1
+//   <= 30 codes that cross into the next tile.  The last group of a ragged
+//   tile is stored key by key.  The wrapper (ops/pack.py) requires `packed`, `valid` and
 //   `out` 16-byte aligned.
 // Tensor cores play no part: this is bit arithmetic on a memory-bound
 // stream.  Shifts are on unsigned keys: a signed right shift would be
@@ -242,7 +248,7 @@ extern "C" int kmerset_pack_canonical(const void* packed, long long L, int k,
                           n_out, stream);
 }
 
-// B2: int64 keys, k <= 23 (the wrapper sends only 15 < k here).
+// B2: int64 keys, k <= 31 (the wrapper sends only 15 < k here).
 extern "C" int kmerset_pack_canonical64(const void* packed, long long L,
                                         int k, int canonical,
                                         const void* valid, void* out,

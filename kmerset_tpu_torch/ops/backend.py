@@ -51,9 +51,19 @@ COUNT_BYTES_PER_WINDOW = {4: 48, 8: 72}
 # Peak device bytes per queried k-mer of one side-table chunk of the
 # graph front-end (ops/neighbors.side_tables), measured the same way.
 FRONT_END_BYTES_PER_QUERY = 320
+# Peak device bytes per k-mer of the front-end's whole-set arrays in its
+# one-shot mode (ops/unitigs.unitig_succ): the set (8), both sides' deg,
+# nbr and same (26), the oriented successor (16), the masks and the
+# terminal tests' gathers; 71.12 measured on one H100 (chip_smoke.py
+# phase 9, PERF.md), rounded up.
+FRONT_END_BYTES_PER_KMER = 80
+# The same in the bounded mode (ops/unitigs.bounded_unitig_succ), which
+# keeps the set and the two sides' uint8 degrees (8 + 2) on the device
+# and every other row on the host; 9.42 measured the same way.
+BOUNDED_BYTES_PER_KMER = 10
 # The share of what the CUDA allocator can still obtain that one step may
-# plan to use; the rest covers the arrays that outlive the step (the
-# front-end's whole per-k-mer outputs) and fragmentation.
+# plan to use; the rest covers the arrays that outlive the step and
+# fragmentation.
 DEVICE_MEMORY_SHARE = 0.5
 # Planning budget on the CPU, where a run shares the host's memory.
 HOST_BUDGET = 2 << 30
@@ -105,6 +115,24 @@ def query_chunk_kmers(budget: int) -> int:
     return max(1, budget // FRONT_END_BYTES_PER_QUERY)
 
 
+def front_end_ceiling(budget: int) -> int:
+    """The most k-mers the front-end's one-shot mode takes within `budget`
+    bytes: its whole-set arrays take at most half of it, so that a query
+    chunk of at least a quarter of the set fits beside them; at least 1.
+    A larger set takes the bounded mode."""
+    return max(1, budget // (2 * FRONT_END_BYTES_PER_KMER))
+
+
+def front_end_plan(n: int, budget: int) -> Tuple[bool, int]:
+    """(bounded, query_chunk) of the front-end on n k-mers within
+    `budget` bytes, its whole-set arrays and one query chunk together:
+    the mode by front_end_ceiling, and a query chunk of what the mode's
+    whole-set arrays leave of the budget, at most n and at least 1."""
+    bounded = n > front_end_ceiling(budget)
+    held = (BOUNDED_BYTES_PER_KMER if bounded else FRONT_END_BYTES_PER_KMER) * n
+    return bounded, max(1, min(n, query_chunk_kmers(budget - held)))
+
+
 class Staged(NamedTuple):
     packed: torch.Tensor  # (ceil(L/4),) uint8, kmerio_pack2 layout
     bounds: torch.Tensor  # (n_fragments,) int32 fragment ends (offsets[1:])
@@ -137,9 +165,10 @@ def stage(
 
 
 def host_library_loaded() -> bool:
-    """Whether the native host library (native/kmerio.c) is loaded.
-    Without it the FASTA parse, the 2-bit pack and the SPSS build run on
-    their numpy fallbacks."""
+    """Whether a native host library (native/kmerio.c: the checkout's
+    native/libkmerio.so or the port's serial edition, core/native.edition)
+    is loaded.  Without one the FASTA parse, the 2-bit pack and the SPSS
+    build run on their numpy fallbacks."""
     return native.get_lib() is not None
 
 

@@ -1,4 +1,4 @@
-"""Device k-mer counting pipeline, k <= 23.
+"""Device k-mer counting pipeline, k <= 31.
 
 Counterpart of kmerset_tpu/ops/count.py, on torch tensors:
 
@@ -11,17 +11,17 @@ in the reference's compaction-kernel branches (count.py:356-368,
 451-457).  The sort is torch.sort, as the reference's is XLA's sort
 outside any Pallas kernel.  Outputs are the reference's trimmed to their
 live prefix: int32 keys for k <= 15 (2k <= 30 bits), int64 keys above
-(2k <= 46 bits: the reference's pair lanes combined, count.py:174-182),
-int32 counts, and the prefix length as a Python int (reading it is the
-pipeline's one host sync).  Where the reference sorts the pair lanes with
-lax.sort(num_keys=2) (count.py:271), the port sorts one int64 key: the
-same order.
+(2k <= 62 bits: up to k = 23 the reference's pair lanes combined,
+count.py:174-182, and above it the reference's own int64 layout,
+count.py:284-294), int32 counts, and the prefix length as a Python int
+(reading it is the pipeline's one host sync).  Where the reference sorts
+the pair lanes with lax.sort(num_keys=2) (count.py:271), the port sorts
+one int64 key: the same order.
 
 Not carried over, because they exist for the TPU only: good_sort_size
 (sort-friendly padding), _use_pallas (backend probing), _compact_runs
 (a flag-fused second sort standing in for slow TPU scatters) and
-jax_enable_x64.  The reference's int64 layout for k > 23 is not ported:
-the CLIs take k = 15, 19 and 23.
+jax_enable_x64.
 """
 
 from __future__ import annotations

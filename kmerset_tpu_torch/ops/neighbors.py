@@ -61,12 +61,13 @@ def side_tables(
     if not canonical:
         raise ValueError(
             "the port builds canonical side tables only; the directed "
-            "graph is the reference's host build (ROADMAP A.5)"
+            "graph is the reference's host build (ROADMAP A.10)"
         )
     A = A.to(torch.int64)
     Q = A[lo:hi]
     mask = (1 << (2 * k)) - 1
     c = torch.arange(4, dtype=torch.int64, device=A.device)[:, None]
+    # At k = 31, Q << 2 wraps into the sign bit; the mask drops bits 62-63.
     right = ((Q << 2) & mask) | c  # next(a, c)
     left = (Q >> 2) | (c << (2 * (k - 1)))  # prev(a, c); a >= 0
     cand = torch.cat([right, left])  # (8, m): group g = side * 4 + c

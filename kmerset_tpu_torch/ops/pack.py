@@ -1,14 +1,17 @@
-"""Kernels B1 (k <= 15) and B2 (15 < k <= 23): canonical window keys
+"""Kernels B1 (k <= 15) and B2 (15 < k <= 31): canonical window keys
 (csrc/pack.cu).
 
 Counterpart of kmerset_tpu/ops/pallas_pack.py:canonical_windows_pallas
 (B1) and canonical_windows_pair_pallas (B2), and of the XLA roll
 formulation in kmerset_tpu/ops/count.py (_pack_contig, _pack_span_rc,
-_single_windows, _pair_windows).  B1 writes one int32 key per window.  B2
-writes one int64 key, (hi << 2*klo) | lo, where the TPU kernel writes the
-(hi, lo) int32 lanes: the reference combines them that way itself
-(count.py:canonical_windows), and the int64 order is the lanes'
-lexicographic order.  The kernels also fuse two neighbours of the
+_single_windows, _pair_windows, _int64_windows).  B1 writes one int32 key
+per window.  B2 writes one int64 key: for k <= 23 it is (hi << 2*klo) |
+lo, where the TPU kernel writes the (hi, lo) int32 lanes (the reference
+combines them that way itself, count.py:canonical_windows, and the int64
+order is the lanes' lexicographic order); for 23 < k <= 31 it is the
+reference's XLA int64 key (_int64_windows), which no Pallas kernel
+computes.  Both are the same 2k-bit number.  The kernels also fuse two
+neighbours of the
 reference pipeline: they read the 2-bit packed upload (the reference
 unpacks it first, count.py:_unpack2) and write the sort sentinel where a
 window is invalid (count.py:257, 269).  `unpack2` below is the plain form
@@ -24,7 +27,7 @@ import torch
 S_SENT = (1 << 31) - 1  # reference ops/count.py _S_SENT (int32 keys)
 SENTINEL = 1 << 62  # reference ops/count.py SENTINEL (int64 keys)
 SINGLE_MAX_K = 15  # 2k <= 30 bits: one non-negative int32 key (B1)
-MAX_K = 23  # 2k <= 46 bits: one int64 key (B2)
+MAX_K = 31  # 2k <= 62 bits: one int64 key below SENTINEL (B2)
 
 # Kernel launches since the last reset (plain integers; a run sets them to
 # 0 and reads them to show its main path went through the kernels):

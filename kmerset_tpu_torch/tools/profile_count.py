@@ -1,6 +1,6 @@
 """Where the port's count phase spends its time on a CUDA device.
 
-    python -m kmerset_tpu_torch.tools.profile_count [--k 15|19|23] \
+    python -m kmerset_tpu_torch.tools.profile_count [--k 15|19|23|31] \
         [--trace OUT.json] FASTA
 
 It counts the FASTA's canonical k-mers (k = 15 by default, the CLI's
@@ -12,7 +12,7 @@ prints one line per step:
 - the staging (2-bit pack and upload, wall ms);
 - each device step of ops/count.count_kmers_frag (CUDA-event ms, through
   its `mark` hook): the pack step is "B1 pack" at k = 15 and "B2 pack" at
-  k = 19 and 23;
+  k = 19, 23 and 31;
 - device_count end to end (stage, device, fetch; wall ms).
 Then it records one device_count call with torch.profiler, writes the
 Chrome trace to --trace if given, and prints the device's busy time by
@@ -110,7 +110,7 @@ def profile_once(codes, offsets, k: int, device, trace_path: str) -> None:
 
 def main(argv=None) -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--k", type=int, default=15, choices=(15, 19, 23))
+    parser.add_argument("--k", type=int, default=15, choices=(15, 19, 23, 31))
     parser.add_argument(
         "--trace", default="",
         help="write the torch.profiler trace of one device_count call here",
@@ -124,7 +124,8 @@ def main(argv=None) -> None:
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip())
     _build.load()
-    print(f"native host library loaded: {backend.host_library_loaded()}")
+    print(f"native host library loaded: {backend.host_library_loaded()} "
+          f"({native.edition()})")
     for rep in range(REPS):
         print(f"--- rep {rep}", flush=True)
         codes, offsets = parse(args.fasta)

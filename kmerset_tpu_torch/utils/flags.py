@@ -21,7 +21,6 @@ import torch
 from .. import resolve_device
 from ..core import native
 from ..core.config import CLI_SUPPORTED_K
-from ..ops.pack import MAX_K
 
 TRACE_FILE = "trace.json"
 
@@ -127,13 +126,9 @@ def check_k(k: int) -> None:
 
 
 def device_or_exit(args, logger) -> torch.device:
-    """The device of --device, after checking that --k is ported; exits 1
-    on a k above MAX_K or a device that is not there (never a quiet CPU
-    run in place of CUDA)."""
-    if args.k > MAX_K:
-        print(f"k={args.k} is not ported: this package counts k <= {MAX_K}",
-              file=sys.stderr)
-        raise SystemExit(1)
+    """The device of --device; exits 1 on a device that is not there
+    (never a quiet CPU run in place of CUDA).  Every k of check_k is
+    ported."""
     try:
         return resolve_device(args.device)
     except (RuntimeError, ValueError) as e:

@@ -2,8 +2,9 @@
 (kmerset_tpu_torch/ops/backend.py) against the reference's
 device_count_chunked and device_unique_chunked (JAX on the CPU, with
 CHUNK_WINDOWS patched small as tests/test_parallel.py does) and against
-the port's one-shot path; the graph front-end in query chunks against its
-one-shot result; and the memory-derived ceilings.  Every comparison is
+the port's one-shot path; the graph front-end in query chunks and in its
+bounded mode against its one-shot result; and the memory-derived
+ceilings.  Every comparison is
 exact.
 """
 
@@ -31,7 +32,7 @@ def _codes(seed: int, n: int = 6000):
     return codes, offsets
 
 
-@pytest.mark.parametrize("k", [9, 15, 23])
+@pytest.mark.parametrize("k", [9, 15, 23, 31])
 def test_count_chunked_matches_reference_and_one_shot(monkeypatch, k):
     codes, offsets = _codes(k)
     monkeypatch.setattr(ref_backend, "CHUNK_WINDOWS", 1500)
@@ -50,7 +51,7 @@ def test_count_chunked_matches_reference_and_one_shot(monkeypatch, k):
         np.testing.assert_array_equal(counts, want[1])
 
 
-@pytest.mark.parametrize("k", [9, 15, 23])
+@pytest.mark.parametrize("k", [9, 15, 23, 31])
 def test_unique_chunked_matches_reference_and_one_shot(monkeypatch, k):
     codes, offsets = _codes(100 + k)
     monkeypatch.setattr(ref_backend, "CHUNK_WINDOWS", 1500)
@@ -86,7 +87,7 @@ def test_chunk_slices_keep_halo_and_reject_empty_chunks():
 
 
 def test_ceilings_at_given_budgets():
-    for k, per in ((9, 48), (15, 48), (19, 72), (23, 72)):
+    for k, per in ((9, 48), (15, 48), (19, 72), (23, 72), (31, 72)):
         assert backend.count_bytes_per_window(k) == per
         assert backend.window_ceiling(k, per * 1000) == 1000
         assert backend.window_ceiling(k, per * 1000 + per - 1) == 1000
@@ -95,9 +96,35 @@ def test_ceilings_at_given_budgets():
     per = backend.FRONT_END_BYTES_PER_QUERY
     assert backend.query_chunk_kmers(per * 4096) == 4096
     assert backend.query_chunk_kmers(per - 1) == 1
+    per = 2 * backend.FRONT_END_BYTES_PER_KMER
+    assert backend.front_end_ceiling(per * 4096 + per - 1) == 4096
+    assert backend.front_end_ceiling(0) == 1
     assert backend.memory_budget("cpu") == backend.HOST_BUDGET
     # 80 GB of free memory: the k = 15 ceiling is far above 2^24 windows.
     assert backend.window_ceiling(15, 40 << 30) > 1 << 28
+
+
+@pytest.mark.parametrize("budget", [0, 1000, 1 << 20, 40 << 30])
+def test_front_end_plan_fits_whole_set_and_chunk_in_the_budget(budget):
+    """The front-end's whole-set arrays and its query chunk are planned
+    together: where the mode's whole-set arrays and a 1-k-mer chunk fit,
+    both together stay within the budget; the one-shot mode runs up to
+    the ceiling, with a chunk of at least half the budget's worth."""
+    ceiling = backend.front_end_ceiling(budget)
+    per_query = backend.FRONT_END_BYTES_PER_QUERY
+    for n in (0, 1, ceiling - 1, ceiling, ceiling + 1, 8 * ceiling,
+              budget // backend.BOUNDED_BYTES_PER_KMER,
+              budget // backend.BOUNDED_BYTES_PER_KMER + 1):
+        bounded, q = backend.front_end_plan(n, budget)
+        assert bounded == (n > ceiling)
+        assert 1 <= q <= max(n, 1)
+        held = n * (backend.BOUNDED_BYTES_PER_KMER if bounded
+                    else backend.FRONT_END_BYTES_PER_KMER)
+        if held + per_query <= budget:
+            assert held + q * per_query <= budget, (n, q)
+        if not bounded and budget:  # a zero budget still plans 1 k-mer
+            assert held <= budget // 2
+            assert q >= min(n, backend.query_chunk_kmers(budget // 2))
 
 
 def _spy(monkeypatch, module, name):
@@ -112,7 +139,7 @@ def _spy(monkeypatch, module, name):
     return calls
 
 
-@pytest.mark.parametrize("k", [15, 23])
+@pytest.mark.parametrize("k", [15, 23, 31])
 def test_counter_and_decode_route_by_the_ceiling(monkeypatch, k):
     """Below the ceiling the one-shot path, above it the chunked one; both
     equal the reference's host count and decode.  Chunked counts stay raw
@@ -164,7 +191,8 @@ def test_unitig_succ_query_chunks_bit_for_bit(k, chunk):
 def test_front_end_above_the_memory_ceiling_does_not_raise(monkeypatch):
     """A set larger than the front-end's one-shot budget (the role the old
     fixed 2^26 cap played) is built in query chunks, equal to the host's
-    construction."""
+    construction.  This one is also above the whole-set ceiling, so the
+    bounded mode makes two passes over the query chunks."""
     from kmerset_tpu.core import spss
 
     k = 15
@@ -172,8 +200,10 @@ def test_front_end_above_the_memory_ceiling_does_not_raise(monkeypatch):
     calls = _spy(monkeypatch, unitigs, "side_tables")
     budget = backend.FRONT_END_BYTES_PER_QUERY * 1000
     monkeypatch.setattr(backend, "memory_budget", lambda device: budget)
+    bounded, q = backend.front_end_plan(A.size, budget)
+    assert bounded and q < 1000
     succ, term_l, term_r, both = unitigs.device_unitig_succ(A, k, device="cpu")
-    assert len(calls) == -(-A.size // 1000) > 1
+    assert len(calls) == 2 * -(-A.size // q) > 2
     (rdeg, rnbr, rsame), (ldeg, lnbr, lsame) = spss._side_tables(A, k, True)
     mate_r = np.where(rsame, rdeg[rnbr], ldeg[rnbr])
     want_r = (rdeg != 1) | (mate_r != 1)
@@ -184,6 +214,39 @@ def test_front_end_above_the_memory_ceiling_does_not_raise(monkeypatch):
     np.testing.assert_array_equal(succ[0::2], np.where(want_r, -1, 2 * rnbr + rsame))
     with pytest.raises(ValueError, match="query_chunk"):
         unitigs.unitig_succ(torch.from_numpy(A), k, 0)
+
+
+@pytest.mark.parametrize("k", [9, 23, 31])
+def test_front_end_bounded_mode_below_its_budget(monkeypatch, k):
+    """A set above the front-end's one-shot ceiling takes the bounded mode
+    (only A and the degrees on the device for the whole set, every other
+    row downloaded per query chunk), with outputs equal to one shot and
+    to the host's construction."""
+    from kmerset_tpu.core import spss
+
+    A = _canonical_set(k, 5000, 300 + k)
+    one = unitigs.device_unitig_succ(A, k, device="cpu")
+    bounded = _spy(monkeypatch, unitigs, "bounded_unitig_succ")
+    budget = backend.FRONT_END_BYTES_PER_KMER * (A.size // 3)
+    monkeypatch.setattr(backend, "memory_budget", lambda device: budget)
+    assert backend.front_end_ceiling(budget) < A.size
+    chunks = _spy(monkeypatch, unitigs, "side_tables")
+    got = unitigs.device_unitig_succ(A, k, device="cpu")
+    assert bounded == [1]
+    # Two passes over the query chunks (degrees, then rows).
+    q = backend.front_end_plan(A.size, budget)[1]
+    assert len(chunks) == 2 * -(-A.size // q) > 2
+    (rdeg, rnbr, rsame), (ldeg, lnbr, lsame) = spss._side_tables(A, k, True)
+    want_r = (rdeg != 1) | (np.where(rsame, rdeg[rnbr], ldeg[rnbr]) != 1)
+    want_l = (ldeg != 1) | (np.where(lsame, ldeg[lnbr], rdeg[lnbr]) != 1)
+    for name, g, w in zip(("succ", "term_l", "term_r", "both"), got, one):
+        assert g.dtype == w.dtype, name
+        np.testing.assert_array_equal(g, w, err_msg=name)
+    np.testing.assert_array_equal(got[1], want_l)
+    np.testing.assert_array_equal(got[2], want_r)
+    assert (got[0] >= 0).any() and (got[0] == -1).any()
+    with pytest.raises(ValueError, match="query_chunk"):
+        unitigs.bounded_unitig_succ(torch.from_numpy(A), k, 0)
 
 
 def test_key_merge_fallback_matches_native_merge(monkeypatch):

@@ -113,9 +113,9 @@ def test_trace_writes_torch_profile(fasta, tmp_path):
 
 
 @pytest.mark.parametrize("cutoff", [1, 2])
-@pytest.mark.parametrize("k", [19, 23])
+@pytest.mark.parametrize("k", [19, 23, 31])
 def test_pair_k_dump_byte_identical_to_reference(fasta, tmp_path, k, cutoff):
-    """k = 19 and 23 (kernel B2, the int64 keys) as k = 15 above."""
+    """k = 19, 23 and 31 (kernel B2, the int64 keys) as k = 15 above."""
     a, b = str(tmp_path / "a.txt"), str(tmp_path / "b.txt")
     common = ["--k", str(k), "--cutoff", str(cutoff), "--check"]
     port = _run("kmerset_tpu_torch.cli.kmerset_build", "--device", "cpu",
@@ -133,12 +133,58 @@ def test_pair_k_dump_byte_identical_to_reference(fasta, tmp_path, k, cutoff):
 
 
 @pytest.mark.parametrize("k", ["25", "31"])
-def test_k_above_23_exits_1(fasta, k):
-    """25 is no CLI k; 31 is one of the reference's, not ported."""
+def test_k_25_exits_1_and_k_31_matches_reference(fasta, tmp_path, k):
+    """25 is no CLI k: both CLIs exit 1.  31 is one of the reference's:
+    both build it, to the same bytes."""
+    a, b = str(tmp_path / "a.txt"), str(tmp_path / "b.txt")
     port = _run("kmerset_tpu_torch.cli.kmerset_build", "--device", "cpu",
-                "--k", k, fasta)
-    assert port.returncode == 1
-    assert k in port.stderr
+                "--k", k, "--out", a, fasta)
+    ref = _run("kmerset_tpu.cli.kmerset_build", "--k", k, "--out", b, fasta)
+    if k == "25":
+        assert port.returncode == ref.returncode == 1
+        assert "unsupported k value: 25" in port.stderr
+        return
+    assert port.returncode == 0, port.stderr
+    assert ref.returncode == 0, ref.stderr
+    with open(a, "rb") as fa, open(b, "rb") as fb:
+        assert fa.read() == fb.read()
+    assert _logged(port.stderr) == _logged(ref.stderr)
+    assert _logged(port.stderr)["kmer_set.Size()"] > 0
+
+
+def test_non_utf8_fasta_logs_and_exits_1_like_reference(tmp_path, monkeypatch):
+    """A FASTA file holding byte 0xff, read without the native library
+    (both packages' loaders report none, as on a machine without one):
+    both CLIs log the same "failed to parse FASTA file" line and exit 1,
+    in this process, where a subprocess would load the library."""
+    import logging
+
+    from kmerset_tpu.cli import kmerset_build as ref_cli
+    from kmerset_tpu.core import native as ref_native
+    from kmerset_tpu_torch.cli import kmerset_build as port_cli
+    from kmerset_tpu_torch.core import native
+
+    monkeypatch.setattr(native, "get_lib", lambda: None)
+    monkeypatch.setattr(ref_native, "get_lib", lambda: None)
+    monkeypatch.setenv("KMERSET_TPU_FORCE_BACKEND", "host")
+    path = tmp_path / "bad.fa"
+    path.write_bytes(b">r0\nACGT\xffACGT\n")
+    errors = []
+    handler = logging.Handler(logging.ERROR)
+    handler.emit = lambda record: errors.append(record.getMessage())
+    log = logging.getLogger("kmerset")
+    log.addHandler(handler)  # the conftest fixture restores the handlers
+    logged = {}
+    for tag, cli, extra in (("port", port_cli, ["--device", "cpu"]),
+                            ("ref", ref_cli, [])):
+        errors.clear()
+        with pytest.raises(SystemExit) as e:
+            cli.main([*extra, "--k", "15", str(path)])
+        assert e.value.code == 1, tag
+        logged[tag] = list(errors)
+    assert logged["port"] == logged["ref"]
+    assert len(logged["port"]) == 1
+    assert logged["port"][0].startswith("failed to parse FASTA file: 'utf-8'")
 
 
 def test_cuda_without_a_card_exits_nonzero(fasta):
@@ -172,17 +218,18 @@ def test_counter_saturates_like_reference():
 _HASH_SIZE = re.compile(r"kmer_set\.(Hash|Size)\(\) = (\d+)")
 
 
-@pytest.fixture(scope="module")
-def strain_sets(tmp_path_factory):
-    """Five compact set files (k = 15) of point-mutated strains of one
-    random genome, and each CLI's compress run of them: the port's with
-    --workers 4 on --device cpu, the reference's pinned to its host path
-    with --workers 1."""
+@pytest.fixture(scope="module", params=[15, 31], ids=["k15", "k31"])
+def strain_sets(request, tmp_path_factory):
+    """Five compact set files (k = 15, and k = 31) of point-mutated
+    strains of one random genome, and each CLI's compress run of them:
+    the port's with --workers 4 on --device cpu, the reference's pinned to
+    its host path with --workers 1.  Returns (k, files, runs)."""
     from kmerset_tpu.core import kmer as kc
     from kmerset_tpu_torch.core.kmer_set import KmerSet
     from kmerset_tpu_torch.core.kmer_set_compact import KmerSetCompact
 
-    d = tmp_path_factory.mktemp("multi")
+    k = request.param
+    d = tmp_path_factory.mktemp(f"multi{k}")
     rng = np.random.default_rng(77)
     base = rng.integers(0, 4, 15000).astype(np.int64)
     files = []
@@ -190,10 +237,10 @@ def strain_sets(tmp_path_factory):
         mut = base.copy()
         pos = rng.integers(0, base.size, base.size // 250)
         mut[pos] = rng.integers(0, 4, pos.size)
-        kmers = np.unique(kc.canonical(kc.kmers_from_codes(mut, 15), 15))
+        kmers = np.unique(kc.canonical(kc.kmers_from_codes(mut, k), k))
         files.append(str(d / f"m{i}.txt"))
         KmerSetCompact.from_kmer_set(
-            KmerSet(15, kmers, _sorted=True), True, device="cpu"
+            KmerSet(k, kmers, _sorted=True), True, device="cpu"
         ).dump(files[-1])
     runs = {}
     for tag, module, extra in (
@@ -202,17 +249,17 @@ def strain_sets(tmp_path_factory):
         ("ref", "kmerset_tpu.cli.kmerset_multiple_compress", []),
     ):
         out = str(d / f"M_{tag}")
-        proc = _run(module, *extra, "--k", "15", "--seed", "1", "--out", out,
-                    "--out_graph", out + ".dot", *files)
+        proc = _run(module, *extra, "--k", str(k), "--seed", "1", "--out",
+                    out, "--out_graph", out + ".dot", *files)
         assert proc.returncode == 0, proc.stderr
         runs[tag] = (out, proc.stderr)
-    return files, runs
+    return k, files, runs
 
 
 def test_multiple_compress_byte_identical_to_reference(strain_sets):
     import filecmp
 
-    _, runs = strain_sets
+    _, _, runs = strain_sets
     (port, port_log), (ref, ref_log) = runs["port"], runs["ref"]
     names = sorted(os.listdir(port))
     assert names == sorted(os.listdir(ref)) and "meta.txt" in names
@@ -226,20 +273,20 @@ def test_multiple_compress_byte_identical_to_reference(strain_sets):
 
 
 def test_multiple_decompress_and_stat_match_reference(strain_sets):
-    files, runs = strain_sets
+    k, files, runs = strain_sets
     logs = {}
     for tag, module, extra in (
         ("port", "kmerset_tpu_torch.cli.kmerset_multiple_decompress",
          ["--device", "cpu", "--workers", "3"]),
         ("ref", "kmerset_tpu.cli.kmerset_multiple_decompress", []),
     ):
-        proc = _run(module, *extra, "--k", "15", runs[tag][0])
+        proc = _run(module, *extra, "--k", str(k), runs[tag][0])
         assert proc.returncode == 0, proc.stderr
         logs[tag] = _HASH_SIZE.findall(proc.stderr)
     assert logs["port"] == logs["ref"]
     port_stat = _run("kmerset_tpu_torch.cli.kmerset_stat", "--device", "cpu",
-                     "--k", "15", *files)
-    ref_stat = _run("kmerset_tpu.cli.kmerset_stat", "--k", "15", *files)
+                     "--k", str(k), *files)
+    ref_stat = _run("kmerset_tpu.cli.kmerset_stat", "--k", str(k), *files)
     assert port_stat.returncode == 0, port_stat.stderr
     assert port_stat.stdout == ref_stat.stdout
     rows = [line.split("\t") for line in port_stat.stdout.splitlines()]
@@ -252,10 +299,10 @@ def test_multiple_decompress_and_stat_match_reference(strain_sets):
 
 
 def test_spss_benchmark_columns_match_reference(strain_sets):
-    files, _ = strain_sets
+    k, files, _ = strain_sets
     port = _run("kmerset_tpu_torch.cli.spss_benchmark", "--device", "cpu",
-                "--k", "15", files[0])
-    ref = _run("kmerset_tpu.cli.spss_benchmark", "--k", "15", files[0])
+                "--k", str(k), files[0])
+    ref = _run("kmerset_tpu.cli.spss_benchmark", "--k", str(k), files[0])
     assert port.returncode == 0, port.stderr
     assert ref.returncode == 0, ref.stderr
     p, r = port.stdout.split(), ref.stdout.split()
@@ -272,8 +319,8 @@ def test_spss_benchmark_columns_match_reference(strain_sets):
 def test_new_clis_exit_1_on_cuda_without_a_card(strain_sets, cli):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
-    files, runs = strain_sets
+    k, files, runs = strain_sets
     arg = runs["port"][0] if cli == "kmerset_multiple_decompress" else files[0]
-    proc = _run(f"kmerset_tpu_torch.cli.{cli}", "--k", "15", arg)
+    proc = _run(f"kmerset_tpu_torch.cli.{cli}", "--k", str(k), arg)
     assert proc.returncode == 1
     assert "cuda" in proc.stderr

@@ -53,7 +53,7 @@ def _port_from_ref_staging(ref_staged):
     return torch.from_numpy(packed), torch.from_numpy(bounds), total, L
 
 
-@pytest.mark.parametrize("k", [9, 15, 19, 23])
+@pytest.mark.parametrize("k", [9, 15, 19, 23, 31])
 def test_count_kmers_frag_matches_reference(k):
     ref_staged, port_staged = _inputs(k)
     uniq, counts, n_unique = R.count_kmers_frag(*ref_staged, k, True)
@@ -70,7 +70,7 @@ def test_count_kmers_frag_matches_reference(k):
 
 
 @pytest.mark.parametrize("cutoff", [1, 2, 3, 9])
-@pytest.mark.parametrize("k", [9, 15, 19, 23])
+@pytest.mark.parametrize("k", [9, 15, 19, 23, 31])
 def test_count_to_set_frag_matches_reference(k, cutoff):
     ref_staged, port_staged = _inputs(k)
     uniq, n_kept, n_cut = R.count_to_set_frag(*ref_staged, k, True, cutoff)
@@ -154,7 +154,7 @@ def test_count_marks_each_step_and_counts_empty_input():
     assert n == keys.shape[0] == counts.shape[0] == 0
 
 
-@pytest.mark.parametrize("k", [9, 15, 19, 23])
+@pytest.mark.parametrize("k", [9, 15, 19, 23, 31])
 def test_frag_window_validity_matches_reference(k):
     ref_staged, _ = _inputs(k)
     _, bounds, total, L = ref_staged
@@ -233,17 +233,18 @@ def test_device_unique_and_empty_inputs():
 
 def test_limits_raise(monkeypatch):
     codes, offsets = core_io.reads_to_codes(_reads(9))
-    with pytest.raises(ValueError, match="k <= 23"):
-        backend.device_count(codes, offsets, 25, True, device="cpu")
+    with pytest.raises(ValueError, match="k <= 31"):
+        backend.device_count(codes, offsets, 32, True, device="cpu")
     monkeypatch.setattr(backend, "MAX_WINDOWS", 100)
     with pytest.raises(ValueError, match="in one shot"):
         backend.device_count(codes, offsets, 9, True, device="cpu")
 
 
-@pytest.mark.parametrize("k", [19, 23])
+@pytest.mark.parametrize("k", [19, 23, 31])
 def test_pair_forward_keys_and_steps_match_reference(k):
     """Forward (non-canonical) int64 keys and counts equal the reference's
-    pair layout, and the pack step is marked as kernel B2."""
+    pair layout (its int64 layout at k = 31), and the pack step is marked
+    as kernel B2."""
     ref_staged, port_staged = _inputs(k)
     uniq, counts, n_unique = R.count_kmers_frag(*ref_staged, k, False)
     steps = []
@@ -256,7 +257,7 @@ def test_pair_forward_keys_and_steps_match_reference(k):
                      "B3 compact", "counts"]
 
 
-@pytest.mark.parametrize("k", [19, 23])
+@pytest.mark.parametrize("k", [19, 23, 31])
 def test_pair_short_and_split_inputs_count_like_reference(k):
     """An input shorter than k counts nothing; fragments split by N runs
     count only the windows inside them, as the reference does."""

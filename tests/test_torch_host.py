@@ -69,6 +69,126 @@ def test_both_packages_load_the_same_library():
         assert native._find_lib() == ref_native._find_lib()
 
 
+@pytest.fixture
+def serial_only(tmp_path, monkeypatch):
+    """The port's loader with a fresh state, `native/libkmerio.so` made
+    unloadable and the serial edition built under tmp_path; returns a
+    function that points the checkout's library at a path (or None)."""
+    from kmerset_tpu_torch import _nativebuild
+
+    monkeypatch.delenv("KMERSET_TPU_NO_AUTOBUILD", raising=False)
+    monkeypatch.setattr(_nativebuild, "ensure_built", lambda target, sources: None)
+    monkeypatch.setattr(_nativebuild, "BUILD_DIR", str(tmp_path / "build"))
+    monkeypatch.setattr(_nativebuild, "_SERIAL", {})
+    monkeypatch.setattr(native, "_LIB", None)
+    monkeypatch.setattr(native, "_TRIED", False)
+    monkeypatch.setattr(native, "_EDITION", None)
+
+    def point_at(path):
+        monkeypatch.setattr(native, "_find_lib", lambda: path)
+
+    return point_at
+
+
+@pytest.mark.parametrize("checkout_lib", ["not a library", "missing"])
+def test_serial_edition_when_the_checkout_library_does_not_load(
+    serial_only, tmp_path, checkout_lib
+):
+    """The serial edition's rule: when native/libkmerio.so is missing or
+    does not load, the port compiles kmerio.c without OpenMP into its
+    build directory, named by the source's hash, and loads it; its dumps
+    equal the reference's (which loads the checkout's library here)."""
+    from kmerset_tpu.core.kmer_set_compact import KmerSetCompact as RefCompact
+    from kmerset_tpu_torch import _nativebuild
+    from kmerset_tpu_torch.core.kmer_set_compact import KmerSetCompact
+
+    fake = tmp_path / "libkmerio.so"
+    fake.write_bytes(b"not an ELF file\n")
+    serial_only(str(fake) if checkout_lib == "not a library" else None)
+    assert native.get_lib() is not None
+    ed = native.edition()
+    assert ed.serial and ed.path == _nativebuild.serial_library_path()
+    assert ed.path.startswith(str(tmp_path / "build"))
+    assert ed.build_s is not None and ed.build_s > 0
+    assert native.set_threads(4)  # a no-op without OpenMP
+    k = 15
+    A = _canonical_set(k, 8000, 71)
+    got, want = tmp_path / "port.txt", tmp_path / "ref.txt"
+    KmerSetCompact.from_kmer_set(KmerSet(k, A, _sorted=True), True,
+                                 device="cpu").dump(str(got))
+    RefCompact.from_kmer_set(RefKmerSet(k, A, _sorted=True), True).dump(str(want))
+    assert got.read_bytes() == want.read_bytes()
+    assert ref_native.get_lib() is not None
+
+
+def test_serial_edition_is_built_once_and_reused(serial_only):
+    """A second process (here: a fresh loader state) finds the serial
+    edition built and compiles nothing; the checkout's library, where it
+    loads, is always taken first."""
+    from kmerset_tpu_torch import _nativebuild
+
+    serial_only(None)
+    first = native.edition()
+    native._LIB, native._TRIED, native._EDITION = None, False, None
+    _nativebuild._SERIAL.clear()
+    second = native.edition()
+    assert second.path == first.path and second.build_s is None
+    native._LIB, native._TRIED, native._EDITION = None, False, None
+    serial_only(first.path)  # a library that loads, where the checkout's is
+    assert native.edition() == native.Edition(first.path, False, None)
+
+
+def test_failed_make_is_recorded_and_not_retried(tmp_path, monkeypatch):
+    """A `make -C native` that fails (the OpenMP build on a compiler
+    without an OpenMP runtime) is recorded under the build directory: a
+    later process skips it, and tries again only once the source or the
+    Makefile has changed.  A build that succeeds records nothing."""
+    from kmerset_tpu_torch import _nativebuild
+
+    ndir = tmp_path / "native"
+    ndir.mkdir()
+    (ndir / "kmerio.c").write_text("int x;\n")
+    (ndir / "Makefile").write_text(
+        "libkmerio.so: kmerio.c\n\techo run >> calls.txt; false\n")
+    monkeypatch.delenv("KMERSET_TPU_NO_AUTOBUILD", raising=False)
+    monkeypatch.setattr(_nativebuild, "_native_dir", lambda: str(ndir))
+    monkeypatch.setattr(_nativebuild, "BUILD_DIR", str(tmp_path / "build"))
+    monkeypatch.setattr(_nativebuild, "_ATTEMPTED", set())
+
+    def new_process_build():
+        _nativebuild._ATTEMPTED.clear()
+        _nativebuild.ensure_built("libkmerio.so", ["kmerio.c"])
+        return (ndir / "calls.txt").read_text().count("run")
+
+    assert new_process_build() == 1
+    assert len(list((tmp_path / "build").glob("make_failed_*"))) == 1
+    assert new_process_build() == 1  # skipped: the same doomed build
+    (ndir / "kmerio.c").write_text("int y;\n")
+    assert new_process_build() == 2  # the source changed: tried again
+    (ndir / "Makefile").write_text(
+        "libkmerio.so: kmerio.c\n\techo run >> calls.txt; touch $@\n")
+    assert new_process_build() == 3 and (ndir / "libkmerio.so").exists()
+    assert len(list((tmp_path / "build").glob("make_failed_*"))) == 2
+    assert new_process_build() == 3  # built and up to date
+
+
+def test_pointer_double_guard_raises_without_allocating():
+    """2^31 nodes overflow the 31-bit pointer field: a ValueError, which
+    python -O keeps (an assert would be stripped), before any array of
+    that size is built (the stub is one element with stride 0)."""
+    from kmerset_tpu_torch.core import graph
+
+    big = np.lib.stride_tricks.as_strided(
+        np.zeros(1, np.int64), shape=(1 << 31,), strides=(0,)
+    )
+    with pytest.raises(ValueError, match="31 bits"):
+        graph.pointer_double(big)
+    end, dist, is_chain, _ = graph.pointer_double(np.array([1, -1], np.int64))
+    np.testing.assert_array_equal(end, [1, 1])
+    np.testing.assert_array_equal(dist, [1, 0])
+    assert is_chain.all()
+
+
 # -- the codec --------------------------------------------------------------
 
 

@@ -85,7 +85,7 @@ def test_pack_rejects_bad_inputs():
     codes = _codes(9, 100)
     packed = _packed(codes)
     with pytest.raises(ValueError):
-        pack.canonical_windows(packed, 100, 24)  # above the int64 layout
+        pack.canonical_windows(packed, 100, 32)  # above the int64 layout
     with pytest.raises(ValueError):
         pack.canonical_windows(packed, 96, 9)  # byte count does not match L
     with pytest.raises(TypeError):
@@ -150,7 +150,27 @@ def test_pack_pair_valid_mask_writes_int64_sentinel():
     np.testing.assert_array_equal(got[valid], want[valid])
     assert (got[~valid] == pack.SENTINEL).all()
     assert pack.SENTINEL == int(R.SENTINEL)
-    assert pack.SINGLE_MAX_K == R.SINGLE_MAX_K and pack.MAX_K == R.PAIR_MAX_K
+    assert pack.SINGLE_MAX_K == R.SINGLE_MAX_K
+    assert R.PAIR_MAX_K < pack.MAX_K == 31  # B2 also takes the int64 layout
+
+
+@pytest.mark.parametrize("canonical", [True, False])
+@pytest.mark.parametrize("k", range(24, 32))
+def test_pack_int64_matches_xla_int64_windows(k, canonical):
+    """Above k = 23 the reference keys windows with XLA's int64 layout
+    (count.py:_int64_windows, through canonical_windows), not a Pallas
+    kernel; B2's plain version equals it, extreme keys included."""
+    for kind in ("random", "all-A", "all-T"):
+        codes = _pair_codes(k, kind)
+        L, n = codes.size, codes.size - k + 1
+        got = pack.canonical_windows(_packed(codes), L, k, canonical)
+        assert got.dtype == torch.int64 and got.shape == (n,)
+        want = np.asarray(R.canonical_windows(jnp.asarray(codes), k, canonical))
+        assert want.dtype == np.int64
+        np.testing.assert_array_equal(got.numpy(), want[:n])
+        assert int(got.max()) < pack.SENTINEL
+    if not canonical:  # the all-T windows keep their forward key
+        assert got.numpy()[0] == (1 << (2 * k)) - 1
 
 
 # -- the redesigned kernels' per-window arithmetic (csrc/pack.cu) ----------

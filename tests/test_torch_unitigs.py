@@ -63,7 +63,7 @@ def test_reverse_complement_matches_host_codec(k):
     assert got[1] == 0 and got[0] == (1 << (2 * k)) - 1
 
 
-@pytest.mark.parametrize("k", [9, 15, 19, 23])
+@pytest.mark.parametrize("k", [9, 15, 19, 23, 31])
 def test_side_tables_match_host(k):
     A = _random_set(k)
     (rdeg, rnbr, rsame), (ldeg, lnbr, lsame) = neighbors.side_tables(
@@ -86,7 +86,7 @@ def test_side_tables_match_host(k):
 
 
 @pytest.mark.parametrize("kind", ["random", "cycle", "isolated"])
-@pytest.mark.parametrize("k", [9, 15, 19, 23])
+@pytest.mark.parametrize("k", [9, 15, 19, 23, 31])
 def test_device_unitig_succ_bit_for_bit(k, kind):
     A = {"random": _random_set, "cycle": _cycle_set,
          "isolated": _isolated_set}[kind](k)
@@ -104,6 +104,29 @@ def test_device_unitig_succ_bit_for_bit(k, kind):
         assert (succ >= 0).all() and not (term_l | term_r).any()
     if kind == "isolated":
         assert (succ == -1).all() and both.all()
+
+
+def test_next_kmer_wraps_through_the_sign_bit_at_k_31():
+    """At k = 31, (Q << 2) carries bits 61-62 of a key whose first base
+    is T into bit 63, the sign bit of int64; the mask drops it, so the
+    side tables equal the host's.  Each T...A key has its four right
+    extensions in the set."""
+    k = 31
+    mid = np.random.default_rng(31).integers(0, 1 << 58, 50)
+    x = kc.canonical((3 << 60) | (mid << 2), k)
+    assert (x >> 60 == 3).all()  # either strand of a T...A key is T...A
+    ext = [kc.next_kmer(x, k, c) for c in range(4)]
+    A = np.unique(kc.canonical(np.concatenate([x, *ext]), k))
+    assert (torch.from_numpy(A) << 2).min() < 0
+    for (deg, nbr, same), right in zip(
+        neighbors.side_tables(torch.from_numpy(A), k, True), (True, False)
+    ):
+        hdeg, hnbr, hsame = spss._side_table_canonical(A, k, right=right)
+        np.testing.assert_array_equal(deg.numpy(), hdeg)
+        np.testing.assert_array_equal(nbr.numpy(), hnbr)
+        np.testing.assert_array_equal(same.numpy(), hsame)
+    rdeg = neighbors.side_tables(torch.from_numpy(A), k, True)[0][0].numpy()
+    assert (rdeg[np.searchsorted(A, x)] == 4).all()
 
 
 def test_front_end_limits_raise(monkeypatch):
