@@ -34,15 +34,25 @@ five shapes the count and decode launch.  Then it drives the port's
 `kmerset-build --check` on the card: run A (k = 15, a 2^24-base genome,
 cutoff 1), run C (k = 23, the same genome, cutoff 1), run D (k = 19,
 ~3x-coverage reads of a 2^22-base genome, cutoff 2) and run E (k = 31,
-run A's genome, cutoff 1).  Each dump must be byte-identical to the
-reference CLI's host build of the same input (those run as subprocesses
-beside the port's runs), and each run must go through its kernels and the
-device graph front-end.  Then it checks the out-of-core paths (the
+run A's genome, cutoff 1) and run F (k = 15, run A's genome, the directed
+graph: --canonical=false, its side tables on the card).  Each dump must
+be byte-identical to the reference CLI's host build of the same input
+(those run as subprocesses beside the port's runs), and each run must go
+through its kernels and the device graph front-end.  Runs A, C and E run
+again on a mesh of 4 shards of one card (--device
+cuda:0,cuda:0,cuda:0,cuda:0: the count, the graph phases and the decode
+on the mesh), and over every card where there are several, each dump
+byte-identical to that run's reference dump.  Then it checks the out-of-core paths (the
 chunked count of run A's input at k = 15, 23 and 31 and the decode of run
 C's dump, each equal to its one-shot result, with the bytes per window
 behind the memory ceiling measured; the front-end in query chunks and in
 its bounded mode, equal to one shot, with its bytes per k-mer measured),
-the sketch table at 100 sets on the card against the CPU, and runs M (k =
+each mesh program (count, front-end, pointer doubling, chain grouping,
+emission, overlap edges, matching) at 1 and 4 shards of one card on run
+A's and run C's inputs and sets against the single-device or host
+result, run A's SPSS build on a 1-shard mesh timed in turns against the
+single-device path's host walk and path cover, the sketch table at 100
+sets on the card against the CPU, and runs M (k =
 15) and M31 (k = 31): the multi-set round trip (eight related strains
 built, jointly compressed, decompressed, `kmerset-stat` and
 `spss-benchmark`) through the port's CLIs on the card against the
@@ -82,6 +92,7 @@ WORK = os.path.join(ROOT, "build", "chip_smoke")
 SEED = 20241016
 CLI_LOGGER = "kmerset"  # the logger kmerset-build writes its log lines to
 DEVICE = "cuda"  # of the out-of-core, sketch and run M phases
+MESH_DEVICE = "cuda:0"  # the card the mesh phase puts its shards on
 HBM_BYTES_PER_S = 3.35e12  # one H100 SXM's memory rate (NVIDIA data sheet)
 # One H100's published rate for scalar 32-bit work outside the tensor
 # cores (67 TFLOP/s float32), the yardstick of the kernels' integer and
@@ -635,22 +646,56 @@ class RefCli:
 class RefRun(RefCli):
     """The reference CLI's host build of one input."""
 
-    def __init__(self, tag: str, fasta: str, k: int, cutoff: int):
+    def __init__(self, tag: str, fasta: str, k: int, cutoff: int, extra=()):
         self.out = os.path.join(WORK, f"{tag}_ref.txt")
         super().__init__(tag, "kmerset_build", [
-            "--k", str(k), "--cutoff", str(cutoff), "--check", "--out",
-            self.out, fasta,
+            "--k", str(k), "--cutoff", str(cutoff), *extra, "--check",
+            "--out", self.out, fasta,
         ])
 
 
+class RefDone:
+    """A RefRun that has ended: its dump, log and wall, read again for
+    another port run of the same input (the mesh runs)."""
+
+    def __init__(self, ref: RefRun, secs: float):
+        self.out, self.log, self.secs = ref.out, ref.err.name, secs
+
+    def wait(self, timeout: float) -> Tuple[str, float]:
+        with open(self.log) as f:
+            return f.read(), self.secs
+
+    def kill(self) -> None:
+        pass
+
+
+# Debug lines of the mesh's steps (parallel/driver.py): "mesh: NAME on N
+# shards: S s".
+_MESH_STEP = re.compile(r"mesh: (.+) on (\d+) shards: ([\d.]+) s")
+
+
+def _mesh_steps(lines) -> dict:
+    """Seconds per mesh step name, summed over the lines."""
+    out = {}
+    for line in lines:
+        m = _MESH_STEP.fullmatch(line)
+        if m:
+            out[m.group(1)] = out.get(m.group(1), 0.0) + float(m.group(3))
+    return out
+
+
 def main_path_run(torch, tag: str, fasta: str, k: int, cutoff: int,
-                  ref: RefRun, kernels: Tuple[str, ...]) -> dict:
-    """Port CLI in-process on cuda against the reference CLI's host build
-    (`ref`); `kernels` are the launch counters this path must raise.
-    Returns the launch counts and the port's phase times."""
+                  ref, kernels: Tuple[str, ...], device: str = "cuda",
+                  extra=()) -> dict:
+    """Port CLI in-process on `device` (one device, or a comma-separated
+    list: a mesh of those shards) against the reference CLI's host build
+    (`ref`); `kernels` are the launch counters this path must raise, and
+    `extra` more CLI flags.  Returns the launch counts and the port's
+    phase times."""
     from kmerset_tpu_torch.cli import kmerset_build
     from kmerset_tpu_torch.ops import compact, pack
 
+    on_mesh = "," in device
     out_port = os.path.join(WORK, f"{tag}_port.txt")
     cap = _Capture()
     log = logging.getLogger(CLI_LOGGER)
@@ -660,8 +705,8 @@ def main_path_run(torch, tag: str, fasta: str, k: int, cutoff: int,
     t0 = time.time()
     try:
         kmerset_build.main([
-            "--device", "cuda", "--k", str(k), "--cutoff", str(cutoff),
-            "--check", "--out", out_port, fasta,
+            "--device", device, "--k", str(k), "--cutoff", str(cutoff),
+            *extra, "--check", "--out", out_port, fasta,
         ])
     finally:
         log.removeHandler(cap)
@@ -686,8 +731,15 @@ def main_path_run(torch, tag: str, fasta: str, k: int, cutoff: int,
         if launches[name] <= 0:
             raise AssertionError(f"{tag}: kernel {name} was not launched")
     spss = _phase_times(msgs)
-    if len(spss) != len(_PHASES) + 3:
+    steps = _mesh_steps(msgs)
+    if len(spss) != len(_PHASES) + (0 if on_mesh else 3):
         raise AssertionError(f"{tag}: the device front-end did not run: {spss}")
+    if on_mesh:
+        front = "front-end" if "--canonical=false" not in extra else "side tables"
+        need = {"count", "decode", front, "pointer doubling",
+                "chain grouping and emission"}
+        if not need <= set(steps):
+            raise AssertionError(f"{tag}: mesh steps {steps}, need {need}")
     times = {
         "count_s": at["constructed kmer_counter"] - at["constructing kmer_counter"],
         "spss_s": at["constructed kmer_set_compact"]
@@ -698,18 +750,25 @@ def main_path_run(torch, tag: str, fasta: str, k: int, cutoff: int,
         "reference_host_total_s": ref_s,
     }
     host = sum(spss[p] for p in _PHASES[1:])
-    say(tag, f"--k {k} --cutoff {cutoff} --check: dump byte-identical to the "
+    say(tag, f"--device {device} --k {k} --cutoff {cutoff} {' '.join(extra)} "
+             f"--check: dump byte-identical to the "
              f"reference host CLI ({os.path.getsize(out_port)} bytes); "
              f"size {mine['kmer_set.Size()']}, hash {mine['kmer_set.Hash()']}, "
              f"cutoff_count {mine['cutoff_count']}; check ok; "
              f"launches {launches}; peak device memory {peak_gib:.3f} GiB")
     say(tag, "wall s: " + ", ".join(f"{n} {v:.3f}" for n, v in times.items()))
-    say(tag, f"SPSS split, s: device front-end (succ on the host) "
-             f"{spss[_PHASES[0]]:.2f} [upload {spss['front-end upload']:.4f}, "
-             f"device {spss['front-end device']:.4f}, download "
-             f"{spss['front-end download']:.4f}]; host walk + emission + "
-             f"path cover {host:.2f} [" + ", ".join(
-                 f"{p} {spss[p]:.2f}" for p in _PHASES[1:]) + "]")
+    if on_mesh:
+        say(tag, f"SPSS split, s: mesh front-end {spss[_PHASES[0]]:.2f}; walk "
+                 f"+ emission + path cover {host:.2f} [" + ", ".join(
+                     f"{p} {spss[p]:.2f}" for p in _PHASES[1:]) + "]; mesh "
+                 "steps: " + ", ".join(f"{n} {v:.4f}" for n, v in steps.items()))
+    else:
+        say(tag, f"SPSS split, s: device front-end (succ on the host) "
+                 f"{spss[_PHASES[0]]:.2f} [upload {spss['front-end upload']:.4f}, "
+                 f"device {spss['front-end device']:.4f}, download "
+                 f"{spss['front-end download']:.4f}]; host walk + emission + "
+                 f"path cover {host:.2f} [" + ", ".join(
+                     f"{p} {spss[p]:.2f}" for p in _PHASES[1:]) + "]")
     return {"launches": launches, "size": mine["kmer_set.Size()"], **times}
 
 
@@ -750,14 +809,15 @@ def _timed(torch, fn):
     return out, time.perf_counter() - t0
 
 
-def check_out_of_core(torch, fasta_a: str, dump_c: str, sizes: dict) -> None:
+def check_out_of_core(torch, fasta_a: str, dump_c: str, sizes: dict) -> dict:
     """The chunked count (run A's genome at k = 15, 23 and 31) and decode
     (run C's dump) at a forced 2^22-window chunk, and the front-end on run
     C's set at query_chunk = 2^22 and in its bounded mode at a forced
     small budget, each equal to its one-shot result; the peak bytes per
     window, per queried k-mer and per k-mer held against the constants
     that size the memory ceilings; and the front-end's two modes timed on
-    run C's and run E's sets (front_end_modes)."""
+    run C's and run E's sets (front_end_modes).  Returns the sets of runs
+    A, C and E, by tag."""
     from kmerset_tpu_torch.ops import backend, neighbors, unitigs
 
     chunk = 1 << 22
@@ -880,6 +940,7 @@ def check_out_of_core(torch, fasta_a: str, dump_c: str, sizes: dict) -> None:
            f"{backend.front_end_plan(ceiling, budget)[1]}), the bounded mode "
            "above.  An input above the count's ceiling (~1.5 Gbases) is not "
            "run here")
+    return sets
 
 
 def front_end_modes(torch, A: np.ndarray, k: int, tag: str) -> None:
@@ -914,6 +975,191 @@ def front_end_modes(torch, A: np.ndarray, k: int, tag: str) -> None:
            + f"; bounded ({-(-n // q_b)} chunk(s), two passes) "
            + ", ".join(f"{t:.4f}" for t in times["bounded"])
            + "; equal outputs")
+
+
+def _canonical_graph(A: np.ndarray, k: int):
+    """(succ, starts) of the canonical unitig graph of the set A, from the
+    single-device front-end on the card."""
+    from kmerset_tpu_torch.ops import unitigs
+
+    succ, term_l, term_r, _ = unitigs.device_unitig_succ(A, k, device=DEVICE)
+    starts = np.concatenate([np.flatnonzero(term_l & ~term_r) * 2,
+                             np.flatnonzero(term_r & ~term_l) * 2 + 1])
+    return succ, starts
+
+
+def _walk_doubling(succ: np.ndarray, walk) -> tuple:
+    """(is_chain, end, dist) of every node of the canonical unitig graph
+    `succ` as the native walk from its starts (`walk`: (nodes, groups))
+    lays the chains out: each walked node's chain end and steps to it;
+    a node that exits nowhere and was not walked (an isolated k-mer's) is
+    its own end; every other node is on a cycle.  The host's answer to
+    pointer doubling in one pass, where core/graph.pointer_double takes
+    10-40 s on these 33M-node graphs."""
+    nodes, groups = walk
+    lens = np.diff(groups)
+    gid = np.repeat(np.arange(lens.size), lens)
+    is_chain = succ < 0
+    end = np.arange(succ.size, dtype=np.int64)
+    dist = np.zeros(succ.size, dtype=np.int64)
+    end[nodes] = nodes[groups[1:][gid] - 1]
+    dist[nodes] = groups[1:][gid] - 1 - np.arange(nodes.size)
+    is_chain[nodes] = True
+    return is_chain, end, dist
+
+
+def _equal(what: str, got, want) -> None:
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    if len(got) != len(want) or not all(
+            g is None and w is None or np.array_equal(g, w)
+            for g, w in zip(got, want)):
+        raise AssertionError(f"mesh: {what} differs from the single-device "
+                             "or host result")
+
+
+def check_mesh_programs(torch, fasta_a: str, sets: dict) -> None:
+    """Each mesh program of the build at 1 and 4 shards on cuda:0, on run
+    A's (k = 15) and run C's (k = 23) inputs and sets, against the
+    single-device or host result: the count (raw counts), the front-end's
+    succ and terminal arrays, pointer doubling (the native walk's chains),
+    chain grouping (the native walk), emission (the native kept walk and
+    host emission), overlap edges (the native join) and matching (the
+    host's greedy matching)."""
+    from kmerset_tpu_torch.core import native, spss
+    from kmerset_tpu_torch.core.graph import handshake_matching
+    from kmerset_tpu_torch.core.kmer_set import KmerSet
+    from kmerset_tpu_torch.ops import backend, unitigs
+    from kmerset_tpu_torch.parallel import driver
+    from kmerset_tpu_torch.parallel.mesh import Mesh
+
+    codes, offsets = fasta_codes(fasta_a)
+    for tag, k in (("run A", 15), ("run C", 23)):
+        A = sets[tag]
+        count = backend.device_count(codes, offsets, k, True, device=DEVICE)
+        front = unitigs.device_unitig_succ(A, k, device=DEVICE)
+        succ, starts = _canonical_graph(A, k)
+        walk = native.chain_walk(succ, starts)
+        ch, ends, dists = _walk_doubling(succ, walk)
+        kept = native.chain_walk_kept(succ, starts, lambda a, b: A[a >> 1] >= A[b >> 1])
+        emitted = spss._emit_kmer_chains(A, k, *kept, oriented=True)
+        ut = spss.get_unitigs_canonical(KmerSet(k, A, _sorted=True), device=DEVICE)
+        P, S = ut.first_kmers(k), ut.last_kmers(k)
+        edges = native.overlap_edges(P, S, k)
+        pa, pb = spss._dedup_port_edges(*edges, len(ut))
+        match = handshake_matching(pa, pb, 2 * len(ut))
+        secs, peaks = {}, {}
+        for n in (1, 4):
+            mesh = Mesh([MESH_DEVICE] * n)
+            t = {}
+
+            def run(name, fn):
+                out, t[name] = _timed(torch, fn)
+                return out
+
+            _equal("count", run("count", lambda: driver.mesh_count(
+                codes, offsets, k, True, mesh)), count)
+            # The front-end's peak bytes per k-mer in one query round and
+            # in 8 (shard_query_chunk forced to an eighth of the set): the
+            # whole-set arrays W and a round's bytes per queried k-mer R,
+            # from peak = W + R * (queried share), held to the constants
+            # of its plan.
+            fe, p1 = _peak_bytes(torch, lambda: run(
+                "front-end", lambda: driver.mesh_unitig_succ(A, k, mesh)))
+            _equal("front-end", fe, front)
+            plan = driver.shard_query_chunk
+            driver.shard_query_chunk = lambda m, sizes: max(1, A.size // (8 * n))
+            try:
+                fe8, p8 = _peak_bytes(torch, lambda: driver.mesh_unitig_succ(
+                    A, k, mesh))
+            finally:
+                driver.shard_query_chunk = plan
+            _equal("front-end in 8 query rounds", fe8, front)
+            R = (p1 - p8) / A.size * 8 / 7
+            peaks[n] = (p1 / A.size - R, R)
+            if peaks[n][0] > driver.MESH_FRONT_END_BYTES_PER_KMER or \
+                    R > driver.MESH_BYTES_PER_QUERY:
+                raise AssertionError(
+                    f"mesh front-end on {n} shard(s): {peaks[n][0]:.2f} B per "
+                    f"k-mer of whole-set arrays, {R:.2f} B per queried k-mer; "
+                    f"its plan takes {driver.MESH_FRONT_END_BYTES_PER_KMER} and "
+                    f"{driver.MESH_BYTES_PER_QUERY}")
+            mpd = run("pointer doubling", lambda: driver.mesh_pointer_double(
+                succ, mesh=mesh))
+            # Every node's is_chain, and the chain nodes' end and dist (a
+            # cycle node's depend on the round count, and nothing reads them).
+            _equal("pointer doubling", (mpd[2], mpd[0][ch], mpd[1][ch]),
+                   (ch, ends[ch], dists[ch]))
+            _equal("chain grouping", run("grouping", lambda: driver.mesh_chain_group(
+                succ, starts, mesh=mesh, pd=mpd)), walk)
+            ps, _ = run("emission", lambda: spss._mesh_chain_walk_kept_emit(
+                A, k, succ, starts, mesh, pd=mpd))
+            _equal("emission", (ps.codes, ps.offsets), (emitted.codes, emitted.offsets))
+            _equal("overlap edges", run("overlap edges", lambda: driver.mesh_overlap_edges(
+                P, S, k, mesh=mesh)), edges)
+            _equal("matching", run("matching", lambda: driver.mesh_matching(
+                pa, pb, 2 * len(ut), mesh=mesh)), match)
+            secs[n] = t
+        say("14 mesh", f"{tag}'s input and set (k = {k}, {A.size} k-mers, "
+                       f"{succ.size} oriented nodes, {len(ut)} unitigs, "
+                       f"{pa.size} port edges): count, front-end, pointer "
+                       "doubling, grouping, emission, overlap edges and "
+                       f"matching on 1 and 4 shards of {MESH_DEVICE} equal to the "
+                       "single-device or host result; the front-end's "
+                       "whole-set arrays "
+                       f"{peaks[1][0]:.2f} / {peaks[4][0]:.2f} B per k-mer and "
+                       f"a query round's {peaks[1][1]:.2f} / {peaks[4][1]:.2f} B "
+                       "per queried k-mer at 1 / 4 shards, in one round and "
+                       "in 8 (the plan takes "
+                       f"{driver.MESH_FRONT_END_BYTES_PER_KMER} and "
+                       f"{driver.MESH_BYTES_PER_QUERY})")
+        for n, t in secs.items():
+            say("14 mesh", f"{tag}, {n} shard(s), s: " + ", ".join(
+                f"{name} {v:.4f}" for name, v in t.items()))
+
+
+def time_mesh_graph(torch, A: np.ndarray, k: int, turns: int = 2) -> None:
+    """Run A's SPSS build from its set on a 1-shard mesh of one card (the
+    front-end, pointer doubling, grouping and emission, overlap edges,
+    matching and cycle breaking on the card) and on the single-device
+    path (device front-end, host chain walk and path cover), in turns,
+    with the same phase lines as the CLI runs; equal strings."""
+    from kmerset_tpu_torch.core import spss
+    from kmerset_tpu_torch.core.kmer_set import KmerSet
+    from kmerset_tpu_torch.parallel.mesh import Mesh
+
+    mesh = Mesh([MESH_DEVICE])
+    rows = {"single device": [], "1-shard mesh": []}
+    outs = {}
+    for _ in range(turns):
+        for name, kw in (("single device", {}), ("1-shard mesh", {"mesh": mesh})):
+            cap = _Capture()
+            log = logging.getLogger(CLI_LOGGER)
+            log.addHandler(cap)
+            try:
+                out, secs = _timed(torch, lambda: spss.get_spss_canonical(
+                    KmerSet(k, A, _sorted=True), device=DEVICE, **kw))
+            finally:
+                log.removeHandler(cap)
+            msgs = [m for _, m in cap.records]
+            rows[name].append((secs, _phase_times(msgs), _mesh_steps(msgs)))
+            outs[name] = out
+    a, b = outs["single device"], outs["1-shard mesh"]
+    if not (np.array_equal(a.codes, b.codes) and np.array_equal(a.offsets, b.offsets)):
+        raise AssertionError("the 1-shard mesh's SPSS differs from the single device's")
+    for name, runs in rows.items():
+        for i, (secs, ph, steps) in enumerate(runs):
+            say("15 mesh", f"run A's set (k = {k}), {name}, turn {i + 1}: "
+                           f"SPSS build {secs:.3f} s [" + ", ".join(
+                               f"{p} {ph[p]:.2f}" for p in _PHASES)
+                + "]" + ("; mesh steps " + ", ".join(
+                    f"{n} {v:.4f}" for n, v in steps.items()) if steps else ""))
+    walk = {name: statistics.median(
+        sum(ph[p] for p in _PHASES[1:]) for _, ph, _ in runs)
+        for name, runs in rows.items()}
+    say("15 mesh", "walk + emission + path cover, median s: " + ", ".join(
+        f"{n} {v:.2f}" for n, v in walk.items()) + f"; equal strings "
+        f"({len(a)}); the slower stays and is written down")
 
 
 def check_sketch(torch, rng) -> None:
@@ -1141,22 +1387,45 @@ def main() -> int:
     write_genome_fasta(fasta_a, rng, 1 << 24)
     fasta_d = os.path.join(WORK, "reads.fa")
     write_reads_fasta(fasta_d, rng, 1 << 22, 3.0)
-    plan = (("5 run A", fasta_a, 15, 1, ("B1", "B3")),
-            ("6 run C", fasta_a, 23, 1, ("B2", "B3")),
-            ("7 run D", fasta_d, 19, 2, ("B2", "B3")),
-            ("12 run E", fasta_a, 31, 1, ("B2", "B3")))
-    refs = [RefRun(tag.split()[-1], fasta, k, cutoff)
-            for tag, fasta, k, cutoff, _ in plan]
+    plan = (("5 run A", fasta_a, 15, 1, ("B1", "B3"), ()),
+            ("6 run C", fasta_a, 23, 1, ("B2", "B3"), ()),
+            ("7 run D", fasta_d, 19, 2, ("B2", "B3"), ()),
+            ("12 run E", fasta_a, 31, 1, ("B2", "B3"), ()),
+            ("16 run F", fasta_a, 15, 1, ("B1", "B3"), ("--canonical=false",)))
+    refs = [RefRun(tag.split()[-1], fasta, k, cutoff, extra)
+            for tag, fasta, k, cutoff, _, extra in plan]
     try:
-        runs = [main_path_run(torch, tag, fasta, k, cutoff, ref, need)
-                for (tag, fasta, k, cutoff, need), ref in zip(plan, refs)]
+        runs = [main_path_run(torch, tag, fasta, k, cutoff, ref, need,
+                              extra=extra)
+                for (tag, fasta, k, cutoff, need, extra), ref in zip(plan, refs)]
     finally:
         for ref in refs:
             ref.kill()
 
-    check_out_of_core(torch, fasta_a, os.path.join(WORK, f"{plan[1][0]}_port.txt"),
-                      {15: runs[0]["size"], 23: runs[1]["size"],
-                       31: runs[3]["size"]})
+    # The mesh: runs A, C and E through the CLI on 4 shards of cuda:0,
+    # against the same reference dumps; over distinct cards where there
+    # are several.
+    lists = [",".join(["cuda:0"] * 4)]
+    n_gpus = torch.cuda.device_count()
+    if n_gpus >= 2:
+        lists.append(",".join(f"cuda:{i}" for i in range(n_gpus)))
+    else:
+        say("17 mesh", "one GPU visible: the mesh over distinct cards (runs A, "
+                       "C, E on cuda:0,cuda:1,...) was not run")
+    for devices in lists:
+        for i in (0, 1, 3):
+            tag, fasta, k, cutoff, need, _ = plan[i]
+            runs.append(main_path_run(
+                torch, f"17 mesh {tag.split(maxsplit=1)[1]}", fasta, k, cutoff,
+                RefDone(refs[i], runs[i]["reference_host_total_s"]), need,
+                device=devices))
+
+    sets = check_out_of_core(torch, fasta_a,
+                             os.path.join(WORK, f"{plan[1][0]}_port.txt"),
+                             {15: runs[0]["size"], 23: runs[1]["size"],
+                              31: runs[3]["size"]})
+    check_mesh_programs(torch, fasta_a, sets)
+    time_mesh_graph(torch, sets["run A"], 15)
     check_sketch(torch, rng)
     strains = write_strains(rng)
     runs.append(run_m(torch, "11 run M", 15, strains))
@@ -1173,7 +1442,7 @@ def main() -> int:
                 if m == "kmerset_tpu" or m.startswith("kmerset_tpu.")]
     if ref_mods:
         raise AssertionError(f"the JAX package was imported: {ref_mods}")
-    say(8, "launch counts over runs A, C, D, E, M and M31: " + ", ".join(
+    say(8, "launch counts over runs A, C, D, E, F, the mesh runs, M and M31: " + ", ".join(
         f"{k['name'].split()[0]} {k['launches']}" for k in kernels)
         + "; neither jax nor kmerset_tpu in sys.modules; "
         f"{time.perf_counter() - t_start:.1f} s")

@@ -5,8 +5,9 @@ device layer is PyTorch plus hand-written CUDA kernels for Hopper
 (`csrc/*.cu`, built on first use by `ops/_build.py`).  The host layer
 (FASTA parsing, the ctypes bindings of the native C library, the SPSS
 chain walk and path cover, set types, file formats, CLI plumbing) is the
-port's own copy of the reference's host code, without its mesh and JAX
-routers: no module of this package imports `jax` or `kmerset_tpu`, and
+port's own copy of the reference's host code, without its JAX routers
+(the mesh of shards, `parallel/`, is reached through an explicit
+`Mesh`): no module of this package imports `jax` or `kmerset_tpu`, and
 nothing here reads the reference's backend switches.  Module names follow
 the reference so that each counterpart can be found by path, and each
 copy names the lines it copies.  Both packages load the same C library,
@@ -37,6 +38,11 @@ def resolve_device(name) -> torch.device:
             raise RuntimeError(
                 f"device {name!r} requested but torch.cuda.is_available() "
                 "is False"
+            )
+        if dev.index is not None and dev.index >= torch.cuda.device_count():
+            raise RuntimeError(
+                f"device {name!r} requested but "
+                f"{torch.cuda.device_count()} CUDA devices are visible"
             )
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {name!r} (use cuda or cpu)")

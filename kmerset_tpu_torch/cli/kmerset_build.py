@@ -5,11 +5,14 @@ Same flags and log lines as kmerset_tpu/cli/kmerset_build.py, plus
 --device (default cuda; a missing CUDA device is an error, never a quiet
 CPU run).  It takes the reference's k = 15, 19, 23 and 31.  Counting and
 the --check decode run on the device through the port's kernels (B1 for
-k = 15, B2 for k = 19, 23 and 31, then B3), and so does the canonical
-SPSS build's unitig graph front-end; the cutoff filter, the chain walk,
-the string emission, the path cover and the dump run on the host, in the
-port's copy of the reference's code.  There is no multi-process bring-up
-(multi-GPU is ROADMAP A.8).
+k = 15, B2 for k = 19, 23 and 31, then B3), and so does the SPSS build's
+unitig graph front-end, canonical or directed (--canonical=false); the
+cutoff filter, the chain walk, the string emission, the path cover and
+the dump run on the host, in the port's copy of the reference's code.
+A comma-separated --device list (cuda:0,cuda:0,cuda:0,cuda:0 is four
+shards on one card) runs the count, the decode and every graph phase on
+a mesh of those shards (parallel/), the reference's forced mesh.  There
+is no multi-process bring-up yet (ROADMAP A.8b).
 """
 
 from __future__ import annotations
@@ -46,7 +49,7 @@ def main(argv=None) -> None:
         "does compression & decompression to see if it is working correctly",
     )
     parser.add_argument("--out", default="", help="output file name")
-    flag_util.add_device_flag(parser)
+    flag_util.add_device_flag(parser, mesh=True)
     parser.add_argument("file", help="path to FASTA file")
     args = flag_util.parse_args(parser, argv)
 
@@ -54,7 +57,7 @@ def main(argv=None) -> None:
     if args.debug:
         enable_debug_logs()
     flag_util.check_k(args.k)
-    device = flag_util.device_or_exit(args, logger)
+    device, mesh = flag_util.devices_or_exit(args, logger)
     flag_util.apply_workers(args)
     cfg = get_config(args.k)
 
@@ -63,7 +66,7 @@ def main(argv=None) -> None:
         try:
             counter = KmerCounter.from_fasta(
                 cfg.k, args.file, args.decompressor, args.canonical,
-                device=device,
+                device=device, mesh=mesh,
             )
         except core_io.IOError_ as e:
             logger.error("failed to parse FASTA file: %s", e)
@@ -79,7 +82,7 @@ def main(argv=None) -> None:
 
         logger.info("constructing kmer_set_compact")
         compact = KmerSetCompact.from_kmer_set(
-            kmer_set, args.canonical, fast=True, device=device
+            kmer_set, args.canonical, fast=True, device=device, mesh=mesh
         )
         logger.info("constructed kmer_set_compact")
         logger.info("kmer_set_compact.Size() = %d", compact.size())
@@ -89,7 +92,7 @@ def main(argv=None) -> None:
         # seeds the decode cache with the source k-mers, so reusing it
         # would compare the array with itself).
         decompressed = KmerSetCompact(
-            compact.k, compact.spss, device=device
+            compact.k, compact.spss, device=device, mesh=mesh
         ).to_kmer_set(args.canonical)
         if kmer_set.equals(decompressed):
             logger.info("kmer_set_compact -> KmerSet: ok")

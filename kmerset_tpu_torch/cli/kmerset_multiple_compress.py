@@ -10,7 +10,7 @@ chain walk, the path cover and the dumps run on the host, in the port's
 copy of the reference's code.
 The directory and the DOT file are byte-identical to the reference's for
 the same inputs and seed.  There is no multi-process bring-up
-(multi-GPU is ROADMAP A.8).
+(its mesh is ROADMAP A.8b).
 """
 
 from __future__ import annotations

@@ -1,11 +1,11 @@
 """Data-parallel graph primitives: pointer doubling and handshake matching.
 
-The port's copy of kmerset_tpu/core/graph.py:31-198 (pointer_double,
-handshake_matching, expand_ranges, filter_groups), without the mesh hook
-of handshake_matching (:121-129; the port has no mesh yet, ROADMAP A.8)
-and without permute_groups and led_group_selection (:201-242), which
-only the reference's multi-device code calls.  pointer_double's size
-guard raises ValueError where the reference asserts.
+The port's copy of kmerset_tpu/core/graph.py:31-242 (pointer_double,
+handshake_matching with its mesh hook, expand_ranges, filter_groups, and
+permute_groups and led_group_selection, which the mesh's chain grouping
+uses).  The hook takes an explicit `mesh` (parallel/mesh.Mesh) where the
+reference's reads its backend switches.  pointer_double's size guard
+raises ValueError where the reference asserts.
 
 These replace the reference's three inherently sequential/lock-based
 mechanisms with log-depth, vectorizable iterations:
@@ -102,7 +102,7 @@ def pointer_double(succ: np.ndarray, labels: np.ndarray | None = None
 
 
 def handshake_matching(
-    pa: np.ndarray, pb: np.ndarray, n_ports: int
+    pa: np.ndarray, pb: np.ndarray, n_ports: int, mesh=None
 ) -> np.ndarray:
     """Deterministic maximal matching over ports.
 
@@ -115,6 +115,8 @@ def handshake_matching(
     This is the data-parallel stand-in for the reference's bucket-locked
     greedy `if (!HasEdge(i) && !HasEdge(j)) AddEdge(...)` scans
     (reference: lib/core/spss.h:796-817 directed, 1445-1498 bidirected).
+    With a `mesh` the rounds run on it (parallel/driver.mesh_matching)
+    where its gate takes n_ports.
     """
     match = np.full(n_ports, -1, dtype=np.int64)
     # Self-loop edges (a == b) are meaningless for a path-cover matching
@@ -127,6 +129,12 @@ def handshake_matching(
     n_e = pa.shape[0]
     if n_e == 0:
         return match
+    # Mesh path: the greedy matching is unique, so the distributed
+    # handshake rounds return the same match array bit for bit.
+    from ..parallel import driver as mesh_driver
+
+    if mesh_driver.should_use_mesh_graph(mesh, n_ports):
+        return mesh_driver.mesh_matching(pa, pb, n_ports, mesh=mesh)
     # Native fast path: the priority-ordered handshake fixpoint equals
     # the sequential greedy scan (an edge survives all rounds iff it is
     # the minimum live edge at both ports, which is exactly the
@@ -196,3 +204,46 @@ def filter_groups(
         _, idx = expand_ranges(lo, hi)
         gathered = nodes[idx]
     return gathered, new_groups
+
+
+def permute_groups(
+    nodes: np.ndarray, groups: np.ndarray, order: np.ndarray
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Reorders chain groups by `order` (a permutation of group indices)."""
+    from . import native
+
+    counts = np.diff(groups)[order]
+    lo, hi = groups[:-1][order], groups[1:][order]
+    new_groups = np.zeros(order.shape[0] + 1, dtype=np.int64)
+    np.cumsum(counts, out=new_groups[1:])
+    gathered = native.gather_ranges(nodes, lo, hi)
+    if gathered is None:
+        _, idx = expand_ranges(lo, hi)
+        gathered = nodes[idx]
+    return gathered, new_groups
+
+
+def led_group_selection(
+    nodes: np.ndarray, groups: np.ndarray, starts: np.ndarray, n_nodes: int
+):
+    """Selects exactly the chain groups led by `starts`, with the stable
+    reorder back to `starts` order — the shared parity-critical guard of
+    the mesh chain-grouping/emission drivers.  Chains are node-disjoint
+    (in-degree <= 1), so each group's first node is its chain's origin.
+    Returns (led_mask, nodes_kept, groups_kept, order), or None when the
+    grouping does not cover every start exactly once (callers take the
+    host walk rather than emit from a foreign origin)."""
+    counts = np.diff(groups)
+    # A trailing empty group's start index equals len(nodes): clamp the
+    # gather and mask empties out of `led` (they cannot be led by a
+    # start) instead of tripping an IndexError.
+    lo = np.where(counts > 0, groups[:-1], 0)
+    firsts = nodes[lo] if nodes.size else np.zeros(counts.shape, np.int64)
+    pos = np.full(n_nodes, -1, dtype=np.int64)
+    pos[starts] = np.arange(starts.size, dtype=np.int64)
+    led = (pos[firsts] >= 0) & (counts > 0)
+    nodes_k, groups_k = filter_groups(nodes, groups, led)
+    if groups_k.shape[0] - 1 != starts.size:
+        return None
+    order = np.argsort(pos[nodes_k[groups_k[:-1]]], kind="stable")
+    return led, nodes_k, groups_k, order

@@ -9,9 +9,10 @@ In memory the strings are a PackedStrings, 2-bit packed between uses
 (pack_in_memory), and the sorted decoded k-mer array is cached.
 
 What differs from the reference's:
-- the canonical build (from_kmer_set, reference :99-120) runs the unitig
-  graph front-end on the compact's device through the port's
-  spss.get_spss_canonical; the directed build is the host get_spss;
+- the build (from_kmer_set, reference :99-120) runs the unitig graph
+  front-end on the compact's device through the port's
+  spss.get_spss_canonical or, directed, spss.get_spss; with a `mesh`
+  (parallel/mesh.Mesh) the build and the decode run on its shards;
 - a lazy build (lazy=True, the multi-set loop's deferred construction)
   stores (kmers, canonical, fast) and builds the same way on first use of
   the strings (the spss property, reference :42-67).  The reference's
@@ -44,10 +45,12 @@ logger = logging.getLogger("kmerset")
 class KmerSetCompact:
     __slots__ = (
         "k", "_spss", "_spss2", "_pending", "_kmers_cache", "_cache_canonical",
-        "device",
+        "device", "mesh",
     )
 
-    def __init__(self, k: int, spss: Optional[PackedStrings], *, device):
+    def __init__(
+        self, k: int, spss: Optional[PackedStrings], *, device, mesh=None
+    ):
         self.k = k
         self._spss = spss
         self._spss2 = None  # 2-bit packed resident form (pack_in_memory)
@@ -55,6 +58,7 @@ class KmerSetCompact:
         self._kmers_cache: Optional[np.ndarray] = None
         self._cache_canonical: Optional[bool] = None
         self.device = resolve_device(device)
+        self.mesh = mesh
 
     @property
     def spss(self) -> PackedStrings:
@@ -69,9 +73,11 @@ class KmerSetCompact:
             ks = KmerSet(self.k, kmers, _sorted=True)
             t0 = time.perf_counter()
             if canonical:
-                built = spss_mod.get_spss_canonical(ks, fast, device=self.device)
+                built = spss_mod.get_spss_canonical(
+                    ks, fast, device=self.device, mesh=self.mesh
+                )
             else:
-                built = spss_mod.get_spss(ks)
+                built = spss_mod.get_spss(ks, device=self.device, mesh=self.mesh)
             logger.debug(
                 "kmer_set_compact: deferred SPSS build %.4f s (%d k-mers)",
                 time.perf_counter() - t0, kmers.shape[0],
@@ -105,13 +111,13 @@ class KmerSetCompact:
     @classmethod
     def from_kmer_set(
         cls, kmer_set: KmerSet, canonical: bool, fast: bool = True,
-        lazy: bool = False, *, device,
+        lazy: bool = False, *, device, mesh=None,
     ) -> "KmerSetCompact":
-        """Builds the SPSS (canonical: graph front-end on `device`, walk
-        and path cover on the host; directed: the host build), now or,
-        with lazy=True, when the strings are first used, and keeps the
-        source k-mers as the decode cache, as the reference does."""
-        obj = cls(kmer_set.k, None, device=device)
+        """Builds the SPSS (graph front-end on `device`, walk and path
+        cover on the host; or all of it on `mesh`), now or, with
+        lazy=True, when the strings are first used, and keeps the source
+        k-mers as the decode cache, as the reference does."""
+        obj = cls(kmer_set.k, None, device=device, mesh=mesh)
         obj._pending = (kmer_set.kmers, canonical, fast)
         if not lazy:
             obj.spss  # noqa: B018 - build now
@@ -126,7 +132,7 @@ class KmerSetCompact:
         """Sorted unique decoded k-mers (cached), decoded on the device."""
         if self._kmers_cache is None or self._cache_canonical != canonical:
             self._kmers_cache = spss_mod.decode_unique_kmers(
-                self.spss, self.k, canonical, device=self.device
+                self.spss, self.k, canonical, device=self.device, mesh=self.mesh
             )
             self._cache_canonical = canonical
         return self._kmers_cache

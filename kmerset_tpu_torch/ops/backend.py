@@ -20,8 +20,10 @@ keys-only _merge_key_pair.
 
 There is no host fallback: on CUDA an error raises.  Left for later slices
 (ROADMAP A): the slow-link probe and gap-encoded key downloads, resident
-device handles and side-code prefetch, and the mesh.  No pow2 padding
-either (good_sort_size exists for the TPU sort).
+device handles and side-code prefetch.  The mesh (parallel/) stages
+its shards with `stage` and plans them with `window_ceiling` and
+`query_chunk_kmers`.  No pow2 padding either (good_sort_size exists for
+the TPU sort).
 """
 
 from __future__ import annotations

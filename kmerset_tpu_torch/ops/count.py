@@ -58,11 +58,10 @@ def _no_mark(step: str) -> None:
     pass
 
 
-def _sorted_runs(packed, bounds, total: int, L: int, k: int, canonical: bool,
-                 mark=_no_mark):
-    """Sorted window keys (int32 for k <= 15, int64 above; invalid windows
-    hold the sentinel and sort last) with their live and run-head masks
-    (reference count.py:253-282, the single-lane and pair branches)."""
+def sorted_window_keys(packed, bounds, total: int, L: int, k: int,
+                       canonical: bool, mark=_no_mark) -> torch.Tensor:
+    """The window keys of the staged codes (kernel B1 for k <= 15, B2
+    above), sorted; invalid windows hold the sentinel and sort last."""
     if not 1 <= k <= MAX_K:
         raise ValueError(f"k={k}: the port counts k <= {MAX_K}")
     n_keys = L - (k - 1)
@@ -72,6 +71,15 @@ def _sorted_runs(packed, bounds, total: int, L: int, k: int, canonical: bool,
     mark("B1 pack" if k <= SINGLE_MAX_K else "B2 pack")
     s = torch.sort(key).values
     mark("sort")
+    return s
+
+
+def _sorted_runs(packed, bounds, total: int, L: int, k: int, canonical: bool,
+                 mark=_no_mark):
+    """Sorted window keys (int32 for k <= 15, int64 above; invalid windows
+    hold the sentinel and sort last) with their live and run-head masks
+    (reference count.py:253-282, the single-lane and pair branches)."""
+    s = sorted_window_keys(packed, bounds, total, L, k, canonical, mark)
     prev = torch.cat([s.new_full((1,), -1), s[:-1]])
     live = s != key_sentinel(k)
     boundary = live & (s != prev)
@@ -115,6 +123,14 @@ def count_kmers_frag(packed, bounds, total: int, L: int, k: int,
     is called after each step; the profiling tool
     (tools/profile_count.py) records a CUDA event there."""
     s, live, boundary = _sorted_runs(packed, bounds, total, L, k, canonical, mark)
+    return count_runs(s, live, boundary, mark)
+
+
+def count_runs(s, live, boundary, mark=_no_mark):
+    """(keys, counts, n_unique) of the sorted keys `s` whose live prefix
+    is `live` and whose run heads are `boundary`: the run heads and their
+    positions compacted by kernel B3, and each count the distance to the
+    next run head (the last: to the live count)."""
     pos = torch.arange(s.shape[0], dtype=torch.int32, device=s.device)
     (ckeys, cpos), n_sel = compact_select([s, pos], boundary)
     mark("B3 compact")

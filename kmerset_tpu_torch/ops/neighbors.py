@@ -1,13 +1,16 @@
-"""Degree / first-neighbour side tables of the canonical de Bruijn graph,
-from one batched membership lookup.
+"""Degree / first-neighbour side tables of the de Bruijn graph, from one
+batched membership lookup.
 
-Counterpart of kmerset_tpu/ops/neighbors.py:tables_traced (the canonical
-arms, :56-202) and of the host kmerset_tpu/core/spss.py:
-_side_table_canonical (:79-103): the 8 extension candidates of every
-k-mer (4 right, 4 left) are made canonical and answered by one
-ops/join.lookup_join over the sorted set.  The reference's int32 and
-(hi, lo) pair lanes exist to halve TPU sort bytes and avoid emulated
-64-bit compares; here every key is one int64.
+Counterpart of kmerset_tpu/ops/neighbors.py:tables_traced (:56-202, both
+values of `canonical`) and of the host kmerset_tpu/core/spss.py:
+_side_table_canonical and _side_table_plain (:79-119): the 8 extension
+candidates of every k-mer (4 right, 4 left), made canonical in the
+canonical graph and taken as they are in the directed one, are answered
+by one ops/join.lookup_join over the sorted set.  The reference's int32
+and (hi, lo) pair lanes exist to halve TPU sort bytes and avoid emulated
+64-bit compares; here every key is one int64.  `candidates` and `tables`
+are the two halves around the lookup, which the mesh's side tables
+(parallel/mesh.py) answer on the owner of each candidate instead.
 """
 
 from __future__ import annotations
@@ -41,43 +44,30 @@ def reverse_complement(x: torch.Tensor, k: int) -> torch.Tensor:
     return x.bitwise_and_((1 << (2 * k)) - 1)
 
 
-def side_tables(
-    A: torch.Tensor, k: int, canonical: bool = True, lo: int = 0,
-    hi: int | None = None,
-):
-    """((rdeg, rnbr, rsame), (ldeg, lnbr, lsame)) of the k-mers A[lo:hi]
-    (all of A by default) in the graph of the sorted unique canonical
-    k-mers A (int32 or int64, odd k): deg (int32) counts the distinct
-    neighbours on that side, nbr (int64) is the position in A of the first
-    one in base order c = 0..3 (0 where deg == 0), and same (bool) says
-    that neighbour is entered on its own same side (its candidate was not
-    canonical).  A k-mer is never its own neighbour.  Every k-mer's row
-    depends only on the k-mer and A, so the rows of a range equal those
-    rows of the whole; a range bounds the peak memory, which is ~8 int64
-    candidates and their lookups per k-mer of the range.
-
-    Only the canonical graph is built here; the directed one
-    (canonical=False) stays on the reference's host build."""
-    if not canonical:
-        raise ValueError(
-            "the port builds canonical side tables only; the directed "
-            "graph is the reference's host build (ROADMAP A.10)"
-        )
-    A = A.to(torch.int64)
-    Q = A[lo:hi]
+def candidates(Q: torch.Tensor, k: int, canonical: bool):
+    """(ncan, same), each (8, m), of the int64 k-mers Q: row g = side * 4
+    + c holds next(q, c) (side 0) or prev(q, c) (side 1), as its canonical
+    min in the canonical graph (same: the candidate was not canonical) and
+    as it is in the directed one (same all False)."""
     mask = (1 << (2 * k)) - 1
-    c = torch.arange(4, dtype=torch.int64, device=A.device)[:, None]
+    c = torch.arange(4, dtype=torch.int64, device=Q.device)[:, None]
     # At k = 31, Q << 2 wraps into the sign bit; the mask drops bits 62-63.
     right = ((Q << 2) & mask) | c  # next(a, c)
     left = (Q >> 2) | (c << (2 * (k - 1)))  # prev(a, c); a >= 0
     cand = torch.cat([right, left])  # (8, m): group g = side * 4 + c
     del right, left
+    if not canonical:
+        return cand, torch.zeros_like(cand, dtype=torch.bool)
     ncan = torch.minimum(cand, reverse_complement(cand, k))
-    same_all = cand != ncan
-    del cand
-    found, idx = lookup_join(A, ncan.view(-1))
-    found = found.view(8, -1) & (ncan != Q)  # no self-loop
-    idx = idx.view(8, -1)
+    return ncan, cand != ncan
+
+
+def tables(Q: torch.Tensor, ncan, same_all, found, idx):
+    """((rdeg, rnbr, rsame), (ldeg, lnbr, lsame)) of the k-mers Q from
+    their candidates (`candidates`) and each candidate's membership:
+    found (8, m) bool and idx (8, m) int64, the position of the member
+    (any value where not found).  A k-mer is never its own neighbour."""
+    found = found & (ncan != Q)  # no self-loop
     out = []
     for side in range(2):
         deg = torch.zeros_like(Q, dtype=torch.int32)
@@ -90,3 +80,26 @@ def side_tables(
             deg += found[g]
         out.append((deg, nbr, same))
     return out[0], out[1]
+
+
+def side_tables(
+    A: torch.Tensor, k: int, canonical: bool = True, lo: int = 0,
+    hi: int | None = None,
+):
+    """((rdeg, rnbr, rsame), (ldeg, lnbr, lsame)) of the k-mers A[lo:hi]
+    (all of A by default) in the graph of the sorted unique k-mers A
+    (int32 or int64): deg (int32) counts the distinct neighbours on that
+    side, nbr (int64) is the position in A of the first one in base order
+    c = 0..3 (0 where deg == 0), and same (bool) says that neighbour is
+    entered on its own same side (its candidate was not canonical; all
+    False in the directed graph, canonical=False, whose A holds forward
+    k-mers).  The canonical graph takes odd k, as the reference's does.
+    A k-mer is never its own neighbour.  Every k-mer's row depends only on
+    the k-mer and A, so the rows of a range equal those rows of the whole;
+    a range bounds the peak memory, which is ~8 int64 candidates and their
+    lookups per k-mer of the range."""
+    A = A.to(torch.int64)
+    Q = A[lo:hi]
+    ncan, same_all = candidates(Q, k, canonical)
+    found, idx = lookup_join(A, ncan.view(-1))
+    return tables(Q, ncan, same_all, found.view(8, -1), idx.view(8, -1))

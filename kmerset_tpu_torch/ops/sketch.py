@@ -20,7 +20,8 @@ Not carried over, because they feed jit caches: the pow2 row and column
 padding and the pow2 batch sizes.  A batch of pairs is bounded by the
 device's memory budget (backend.memory_budget) in place of the
 reference's fixed _MAX_ELEMENTS = 2^26.  The mesh table
-(MeshSketchTable, :132-225) is multi-GPU work (ROADMAP A.8).
+(MeshSketchTable, :132-225) is the multi-set half of the mesh (ROADMAP
+A.8b).
 """
 
 from __future__ import annotations

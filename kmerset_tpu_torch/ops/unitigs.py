@@ -10,7 +10,9 @@ that keeps only the set and its degrees there.  Orientation
 convention of core/spss.py: node u = (entity << 1) | o, o = 0 exits the
 right side, o = 1 the left; mirror(u) = u ^ 1.  The chain walk and the
 string emission stay on the host (core/spss.py), which needs exactly
-these arrays.
+these arrays.  The directed graph's side tables (device_side_tables_
+directed) are built on the device the same way, in query chunks, for
+the host's start and end tests.
 """
 
 from __future__ import annotations
@@ -167,5 +169,48 @@ def device_unitig_succ(
         "download %.4f s (%d k-mers, %d query chunks, %s)", t1 - t0, t2 - t1,
         t3 - t2, n, -(-n // max(1, query_chunk)),
         "bounded" if bounded else "one shot",
+    )
+    return out
+
+
+def device_side_tables_directed(
+    A: np.ndarray, k: int, *, device, query_chunk: Optional[int] = None,
+):
+    """((outdeg, next), (indeg, prev)) of the directed graph of the host
+    array A (sorted unique forward int64 k-mers), built on `device` as
+    host int64 arrays: the device form of the reference's directed side
+    tables (kmerset_tpu/core/spss.py:_side_tables with canonical=False,
+    :122-167, whose device arm is ops/neighbors.device_side_tables).  The
+    set is uploaded once and its rows are built and downloaded in query
+    chunks of `query_chunk` k-mers, by default backend.front_end_plan's
+    for the device's memory budget; the result is the same at every chunk
+    size.  Logs the upload, device and download times at debug level."""
+    if query_chunk is not None and query_chunk < 1:
+        raise ValueError(f"query_chunk must be >= 1, got {query_chunk}")
+    n = int(A.shape[0])
+    out = tuple((np.empty(n, np.int64), np.empty(n, np.int64)) for _ in range(2))
+    dev = resolve_device(device)
+    with backend.device_lock(dev):
+        if query_chunk is None:
+            query_chunk = backend.front_end_plan(n, backend.memory_budget(dev))[1]
+        t0 = time.perf_counter()
+        At = torch.from_numpy(np.ascontiguousarray(A, dtype=np.int64)).to(dev)
+        _sync(dev)
+        t1 = time.perf_counter()
+        download_s = 0.0
+        for lo in range(0, n, query_chunk):
+            hi = min(lo + query_chunk, n)
+            rows = side_tables(At, k, False, lo, hi)
+            _sync(dev)
+            t = time.perf_counter()
+            for host, (deg, nbr, _) in zip(out, rows):
+                host[0][lo:hi] = deg.cpu().numpy()
+                host[1][lo:hi] = nbr.cpu().numpy()
+            download_s += time.perf_counter() - t
+        t3 = time.perf_counter()
+    logger.debug(
+        "unitigs: device side tables upload %.4f s, device %.4f s, "
+        "download %.4f s (%d k-mers, %d query chunks, directed)", t1 - t0,
+        t3 - t1 - download_s, download_s, n, -(-n // query_chunk),
     )
     return out

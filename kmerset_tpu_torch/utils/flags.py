@@ -3,7 +3,8 @@
 The port's copy of kmerset_tpu/utils/flags.py:1-160, without its JAX
 parts: honor_platform_env (:61-83), which re-pins JAX's platform, and
 the jax.profiler trace (:131-142), which is a torch.profiler trace here.
-Added: the port's --device flag.  The flag surface is otherwise the
+Added: the port's --device flag, which kmerset-build also takes as a
+comma-separated list of shards (a mesh).  The flag surface is otherwise the
 reference's, with the same help strings; boolean flags accept --flag /
 --noflag / --flag=true|false like absl.
 """
@@ -14,13 +15,15 @@ import argparse
 import contextlib
 import os
 import sys
-from typing import List
+from typing import List, Optional, Tuple
 
 import torch
 
 from .. import resolve_device
 from ..core import native
 from ..core.config import CLI_SUPPORTED_K
+from ..parallel.driver import auto_mesh
+from ..parallel.mesh import Mesh
 
 TRACE_FILE = "trace.json"
 
@@ -104,12 +107,14 @@ def add_common_flags(
         add_bool_flag(parser, "canonical", True, FLAG_MESSAGES["canonical"])
 
 
-def add_device_flag(parser) -> None:
-    parser.add_argument(
-        "--device",
-        default="cuda",
-        help="torch device for counting and decoding: cuda (default) or cpu",
-    )
+def add_device_flag(parser, mesh: bool = False) -> None:
+    help_ = "torch device for counting and decoding: cuda (default) or cpu"
+    if mesh:
+        help_ += (
+            "; a comma-separated list (e.g. cuda:0,cuda:1 or cpu,cpu,cpu,cpu)"
+            " runs on a mesh of those shards"
+        )
+    parser.add_argument("--device", default="cuda", help=help_)
 
 
 def apply_workers(args) -> None:
@@ -125,10 +130,37 @@ def check_k(k: int) -> None:
         raise SystemExit(1)
 
 
-def device_or_exit(args, logger) -> torch.device:
-    """The device of --device; exits 1 on a device that is not there
+def devices_or_exit(args, logger) -> Tuple[torch.device, Optional[Mesh]]:
+    """(device, mesh) of --device.  A comma-separated list of more than one
+    entry is a mesh of those shards, routed to whatever the input's size
+    (the port's counterpart of the reference's forced mesh of a chosen
+    number of devices), and device is its first shard.
+    One entry is the single-device path; a plain `cuda` with two or more
+    GPUs visible also gets an automatic mesh over them, taken above the
+    reference's size gates (parallel/driver.auto_mesh).  Exits 1 on an
+    entry that is not there, with the message a single such device gets
     (never a quiet CPU run in place of CUDA).  Every k of check_k is
     ported."""
+    names = [x.strip() for x in str(args.device).split(",")]
+    try:
+        devs = [resolve_device(x) for x in names]
+    except (RuntimeError, ValueError) as e:
+        logger.error("%s", e)
+        sys.exit(1)
+    if len(devs) > 1:
+        return devs[0], Mesh(devs)
+    return devs[0], auto_mesh(devs[0])
+
+
+def device_or_exit(args, logger) -> torch.device:
+    """The one device of --device for the CLIs that do not run on a mesh
+    yet; exits 1 on a device that is not there and on a list."""
+    if "," in str(args.device):
+        logger.error(
+            "--device %s: a list of shards (a mesh) is taken by "
+            "kmerset-build only", args.device,
+        )
+        sys.exit(1)
     try:
         return resolve_device(args.device)
     except (RuntimeError, ValueError) as e:

@@ -324,3 +324,90 @@ def test_new_clis_exit_1_on_cuda_without_a_card(strain_sets, cli):
     proc = _run(f"kmerset_tpu_torch.cli.{cli}", "--k", str(k), arg)
     assert proc.returncode == 1
     assert "cuda" in proc.stderr
+
+
+# -- the --device list (a mesh of shards) ------------------------------------
+
+
+def _device_args(value: str):
+    import argparse
+
+    return argparse.Namespace(device=value)
+
+
+def _errors_of(call):
+    """(exit code or None, result, logged error lines) of call(logger)."""
+    import logging
+
+    errors = []
+    logger = logging.getLogger("kmerset.test_device_list")
+    handler = logging.Handler(logging.ERROR)
+    handler.emit = lambda record: errors.append(record.getMessage())
+    logger.addHandler(handler)
+    try:
+        return None, call(logger), errors
+    except SystemExit as e:
+        return e.code, None, errors
+    finally:
+        logger.removeHandler(handler)
+
+
+@pytest.mark.parametrize("value,n_shards", [("cpu", 0), ("cpu,cpu", 2),
+                                            (" cpu , cpu,cpu,cpu", 4)])
+def test_device_list_parses_to_a_mesh(value, n_shards):
+    """One entry is the single-device path (no mesh: no automatic one on
+    the CPU); a list of several is a mesh of those shards, forced, with
+    its first shard as the device."""
+    from kmerset_tpu_torch.utils import flags
+
+    code, (device, mesh), errors = _errors_of(
+        lambda log: flags.devices_or_exit(_device_args(value), log))
+    assert code is None and not errors
+    assert device == torch.device("cpu")
+    if n_shards == 0:
+        assert mesh is None
+    else:
+        assert mesh.size == n_shards and mesh.forced
+        assert mesh.devices == (torch.device("cpu"),) * n_shards
+
+
+@pytest.mark.parametrize("bad", ["cuda", "cuda:7", "meta", "tpu"])
+def test_device_list_with_a_missing_device_exits_1_like_one_device(bad):
+    """A list naming a missing or unsupported device exits 1 with the
+    message the single device gets."""
+    from kmerset_tpu_torch.utils import flags
+
+    if bad.startswith("cuda") and torch.cuda.is_available() and bad == "cuda":
+        pytest.skip("a CUDA device is present")
+    single = _errors_of(lambda log: flags.devices_or_exit(_device_args(bad), log))
+    listed = _errors_of(
+        lambda log: flags.devices_or_exit(_device_args(f"cpu,{bad},cpu"), log))
+    assert single[0] == listed[0] == 1
+    assert single[2] == listed[2] and len(single[2]) == 1
+    assert bad.split(":")[0] in single[2][0]
+
+
+def test_clis_without_a_mesh_refuse_a_device_list():
+    """kmerset-stat, the multi-set CLIs and spss-benchmark take one
+    device; a list exits 1 instead of running on part of it."""
+    from kmerset_tpu_torch.utils import flags
+
+    code, _, errors = _errors_of(
+        lambda log: flags.device_or_exit(_device_args("cpu,cpu"), log))
+    assert code == 1 and "kmerset-build only" in errors[0]
+    code, device, _ = _errors_of(
+        lambda log: flags.device_or_exit(_device_args("cpu"), log))
+    assert code is None and device == torch.device("cpu")
+
+
+def test_build_cli_on_a_device_list_in_a_subprocess(fasta, tmp_path):
+    """`--device cpu,cpu,cpu` from the command line: the dump of the
+    single-device build."""
+    a, b = str(tmp_path / "a.txt"), str(tmp_path / "b.txt")
+    for dev, out in (("cpu,cpu,cpu", a), ("cpu", b)):
+        proc = _run("kmerset_tpu_torch.cli.kmerset_build", "--device", dev,
+                    "--k", "23", "--check", "--out", out, fasta)
+        assert proc.returncode == 0, proc.stderr
+        assert "kmer_set_compact -> KmerSet: ok" in proc.stderr
+    with open(a, "rb") as fa, open(b, "rb") as fb:
+        assert fa.read() == fb.read()

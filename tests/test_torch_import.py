@@ -29,6 +29,8 @@ names = [m.name for m in pkgutil.walk_packages(
     kmerset_tpu_torch.__path__, "kmerset_tpu_torch.")]
 for name in names:
     importlib.import_module(name)
+assert {"kmerset_tpu_torch.parallel.mesh",
+        "kmerset_tpu_torch.parallel.driver"} <= set(names), names
 from kmerset_tpu_torch.core.kmer_counter import KmerCounter
 c = KmerCounter.from_reads(3, ["ACGTTGCA", "AANAC"], True, device="cpu")
 # canonical 3-mers of ACGTTGCA: ACG CGT(=ACG) GTT(=AAC) TTG(=CAA) TGC(=GCA) GCA
@@ -51,6 +53,12 @@ for i in range(2):
         f.write(">g\n" + "".join("ACGT"[c] for c in mut) + "\n")
     kmerset_build.main(["--device", "cpu", "--k", "15", "--check", "--out", out, fa])
     sets.append(out)
+# The same build on a mesh of two CPU shards: the same dump.
+mesh_out = os.path.join(work, "mesh.txt")
+kmerset_build.main(["--device", "cpu,cpu", "--k", "15", "--check", "--out",
+                    mesh_out, fa])
+with open(mesh_out, "rb") as f, open(sets[-1], "rb") as g:
+    assert f.read() == g.read()
 d = os.path.join(work, "M")
 kmerset_multiple_compress.main(["--device", "cpu", "--k", "15", "--out", d, *sets])
 log = io.StringIO()
@@ -70,8 +78,9 @@ print(len(names))
 
 
 def test_port_imports_and_counts_without_jax(tmp_path):
-    """With jax and kmerset_tpu blocked: every module imports, and the
-    build, compress, decompress and stat CLIs run on the CPU."""
+    """With jax and kmerset_tpu blocked: every module imports, parallel/
+    included, and the build (on one device and on a mesh of two CPU
+    shards), compress, decompress and stat CLIs run on the CPU."""
     env = dict(os.environ)
     env.pop("KMERSET_TPU_FORCE_BACKEND", None)
     proc = subprocess.run(
@@ -117,6 +126,21 @@ def test_resolve_device_refuses_missing_cuda():
     assert kmerset_tpu_torch.resolve_device("cpu") == torch.device("cpu")
     with pytest.raises(ValueError):
         kmerset_tpu_torch.resolve_device("meta")
+
+
+def test_mesh_needs_a_shard_and_locks_each_device_once():
+    """A mesh of no shard raises; shards sharing a device take its lock
+    once a step (backend.device_lock is not reentrant)."""
+    from kmerset_tpu_torch.ops import backend
+    from kmerset_tpu_torch.parallel.mesh import Mesh
+
+    with pytest.raises(ValueError, match="at least one shard"):
+        Mesh([])
+    mesh = Mesh(["cpu", "cpu", "cpu"])
+    assert mesh.physical() == {torch.device("cpu"): 3}
+    with mesh.lock():
+        assert backend.device_lock("cpu").locked()
+    assert not backend.device_lock("cpu").locked()
 
 
 def test_wrappers_refuse_other_devices():

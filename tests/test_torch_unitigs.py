@@ -130,12 +130,19 @@ def test_next_kmer_wraps_through_the_sign_bit_at_k_31():
 
 
 def test_front_end_limits_raise(monkeypatch):
-    """The directed graph and an empty query chunk raise; a set above
-    the front-end's one-shot memory budget no longer does (it is built in
-    query chunks, equal to the one-shot result)."""
+    """An empty query chunk raises; the directed graph no longer does (its
+    tables are the host's plain ones), nor does a set above the
+    front-end's one-shot memory budget (it is built in query chunks,
+    equal to the one-shot result)."""
     A = _random_set(9)
-    with pytest.raises(ValueError, match="directed"):
-        neighbors.side_tables(torch.from_numpy(A), 9, canonical=False)
+    for (deg, nbr, same), right in zip(
+        neighbors.side_tables(torch.from_numpy(A), 9, canonical=False),
+        (True, False),
+    ):
+        hdeg, hnbr = spss._side_table_plain(A, 9, right=right)
+        np.testing.assert_array_equal(deg.numpy(), hdeg)
+        np.testing.assert_array_equal(nbr.numpy(), hnbr)
+        assert not same.numpy().any()
     with pytest.raises(ValueError, match="query_chunk"):
         unitigs.device_unitig_succ(A, 9, device="cpu", query_chunk=0)
     want = unitigs.device_unitig_succ(A, 9, device="cpu")
