@@ -50,14 +50,21 @@ its bounded mode, equal to one shot, with its bytes per k-mer measured),
 each mesh program (count, front-end, pointer doubling, chain grouping,
 emission, overlap edges, matching) at 1 and 4 shards of one card on run
 A's and run C's inputs and sets against the single-device or host
-result, run A's SPSS build on a 1-shard mesh timed in turns against the
+result, and the multi-set programs (the XOR hash, the set algebra) at 1
+and 4 shards on run A's set and a set made from the seed against numpy,
+run A's SPSS build on a 1-shard mesh timed in turns against the
 single-device path's host walk and path cover, the sketch table at 100
-sets on the card against the CPU, and runs M (k =
-15) and M31 (k = 31): the multi-set round trip (eight related strains
-built, jointly compressed, decompressed, `kmerset-stat` and
-`spss-benchmark`) through the port's CLIs on the card against the
-reference's host CLIs: byte-identical directories and DOT files, equal
-hashes, sizes, TSV and weights.  Inputs are made from fixed seeds under
+sets on the card against the CPU, and the same rows in the
+key-range-sharded mesh table on 1 and 4 shards of one card against the
+single table, and runs M (k = 15) and M31 (k = 31): the multi-set round
+trip (eight related strains built, jointly compressed, decompressed,
+`kmerset-stat` and `spss-benchmark`) through the port's CLIs on the card
+against the reference's host CLIs: byte-identical directories and DOT
+files, equal hashes, sizes, TSV and weights.  Phase 18 runs M's and
+M31's compress, decompress, stat and spss-benchmark again on 4 shards of
+one card (and over every card where there are several) against the same
+reference outputs; the compress must take the mesh's sketch table, and
+decode and build on the mesh.  Inputs are made from fixed seeds under
 build/chip_smoke/.
 
 Each phase prints one line.  The line before the last is a JSON summary of
@@ -1118,6 +1125,53 @@ def check_mesh_programs(torch, fasta_a: str, sets: dict) -> None:
                 f"{name} {v:.4f}" for name, v in t.items()))
 
 
+def check_mesh_multiset(torch, rng, A: np.ndarray, k: int) -> None:
+    """The multi-set programs at 1 and 4 shards of one card on run A's set
+    (A) and a set B from the script's seed (a random two thirds of A,
+    joined with as many random k-mers not in A): sharded_hash of each,
+    held to numpy's XOR reduction, and sharded_set_algebra, held to
+    numpy's intersect1d and setdiff1d and their sizes."""
+    from kmerset_tpu_torch.parallel import driver
+    from kmerset_tpu_torch.parallel.mesh import (Mesh, sharded_hash,
+                                                 sharded_set_algebra)
+
+    keep = A[rng.random(A.size) < 2 / 3]
+    new = np.setdiff1d(rng.integers(0, 1 << (2 * k), keep.size), A)
+    B = np.union1d(keep, new)
+    want_hash = [int(np.bitwise_xor.reduce(x)) for x in (A, B)]
+    want = (np.intersect1d(A, B, assume_unique=True),
+            np.setdiff1d(A, B, assume_unique=True),
+            np.setdiff1d(B, A, assume_unique=True))
+    secs = {}
+    for n in (1, 4):
+        mesh = Mesh([MESH_DEVICE] * n)
+        a_blocks, _ = driver._key_blocks(mesh, A, k)
+        b_blocks, _ = driver._key_blocks(mesh, B, k)
+        hashes, t_hash = _timed(torch, lambda: [sharded_hash(mesh, a_blocks),
+                                                sharded_hash(mesh, b_blocks)])
+        if hashes != want_hash:
+            raise AssertionError(f"mesh hash on {n} shard(s): {hashes} against "
+                                 f"numpy's {want_hash}")
+        res, t_alg = _timed(torch, lambda: sharded_set_algebra(mesh, a_blocks, b_blocks))
+        *parts, sizes = res
+        for name, got, w in zip(("A & B", "A - B", "B - A"), parts, want):
+            if not np.array_equal(np.concatenate([g.cpu().numpy() for g in got]), w):
+                raise AssertionError(f"mesh set algebra on {n} shard(s): {name} "
+                                     "differs from numpy's")
+        if sizes.tolist() != [w.size for w in want]:
+            raise AssertionError(f"mesh set algebra on {n} shard(s): sizes "
+                                 f"{sizes.tolist()}")
+        secs[n] = (t_hash, t_alg)
+    say("14 mesh", f"run A's set (k = {k}, {A.size} k-mers) and B ({B.size}: "
+                   f"{keep.size} of A and {new.size} new): sharded_hash and "
+                   f"sharded_set_algebra on 1 and 4 shards of {MESH_DEVICE} "
+                   f"equal to numpy (hashes {want_hash[0]}, {want_hash[1]}; "
+                   f"|A & B| {want[0].size}, |A - B| {want[1].size}, |B - A| "
+                   f"{want[2].size}); s at 1 / 4 shards: hash of both "
+                   f"{secs[1][0]:.4f} / {secs[4][0]:.4f}, set algebra "
+                   f"{secs[1][1]:.4f} / {secs[4][1]:.4f}")
+
+
 def time_mesh_graph(torch, A: np.ndarray, k: int, turns: int = 2) -> None:
     """Run A's SPSS build from its set on a 1-shard mesh of one card (the
     front-end, pointer doubling, grouping and emission, overlap edges,
@@ -1165,8 +1219,13 @@ def time_mesh_graph(torch, A: np.ndarray, k: int, turns: int = 2) -> None:
 def check_sketch(torch, rng) -> None:
     """All 4,950 pair weights of 100 sketches of ~85K keys (2% of a
     ~4.2M-k-mer set, the README's 100-set scale) on cuda, equal to the
-    same table on the CPU and, for 64 pairs, to a numpy intersection."""
-    from kmerset_tpu_torch.ops.sketch import DeviceSketchTable
+    same table on the CPU and, for 64 pairs, to a numpy intersection; and
+    the same rows as a key-range-sharded MeshSketchTable on 1 and on 4
+    shards of one card, equal to the single table on every pair, timed
+    beside it, with each shard's width against the reference's rule (every
+    shard pow2 of the widest whole sketch)."""
+    from kmerset_tpu_torch.ops.sketch import DeviceSketchTable, MeshSketchTable
+    from kmerset_tpu_torch.parallel.mesh import Mesh
 
     pool = np.unique(rng.integers(0, 1 << 30, 170_000))
     sketches = []
@@ -1196,6 +1255,25 @@ def check_sketch(torch, rng) -> None:
             f"{secs:.4f} s ({table.batch_pairs()} pairs per batch), equal to "
             f"the CPU table ({cpu_s:.3f} s there) and, for 64 pairs, to "
             "numpy's intersect1d")
+    pow2 = 1 << (table.S - 1).bit_length()
+    for n in (1, 4):
+        mesh = Mesh([MESH_DEVICE] * n)
+        mt = MeshSketchTable(sketches, 15, mesh)
+        if any(r.device != torch.device(MESH_DEVICE) for r in mt.rows):
+            raise AssertionError("the mesh sketch table is not on the card")
+        mt.pair_weights(pairs[:100])  # warm-up
+        mesh_got, mesh_s = _timed(torch, lambda: mt.pair_weights(pairs))
+        _, single_s = _timed(torch, lambda: table.pair_weights(pairs))
+        if not np.array_equal(mesh_got, got):
+            raise AssertionError(
+                f"the mesh sketch table on {n} shard(s) differs from the "
+                "single table")
+        say(10, f"mesh sketch table on {n} shard(s) of {MESH_DEVICE}: all "
+                f"{len(pairs)} pair weights equal to the single table's; "
+                f"{mesh_s:.4f} s against the single table's {single_s:.4f} s "
+                f"in turn; shard widths {mt.widths} (sum {sum(mt.widths)}; "
+                f"the reference's rule: {n} x pow2({table.S}) = {n * pow2}); "
+                f"{mt.batch_pairs()} pairs per batch")
 
 
 M_SETS = 8
@@ -1220,7 +1298,7 @@ def _capture_run(cli, argv):
 
 _HASH_SIZE = re.compile(r"kmer_set\.(Hash|Size)\(\) = (\d+)")
 _DEFERRED = re.compile(r"deferred SPSS build ([\d.]+) s")
-_ORACLE = re.compile(r"sketch table on (\S+) ([\d.]+) s \((\d+) pair")
+_ORACLE = re.compile(r"sketch table on (.+?) ([\d.]+) s \((\d+) pair")
 
 
 def write_strains(rng):
@@ -1320,7 +1398,7 @@ def run_m(torch, tag: str, k: int, fastas) -> dict:
     msgs = [m for _, m in comp_log]
     builds = [float(m.group(1)) for m in map(_DEFERRED.search, msgs) if m]
     oracle = [m.groups() for m in map(_ORACLE.search, msgs) if m]
-    if not builds or len(oracle) != 1 or not oracle[0][0].startswith(DEVICE):
+    if not builds or len(oracle) != 1 or oracle[0][0] != DEVICE:
         raise AssertionError(f"{tag}: deferred builds {builds}, oracle {oracle}")
     sizes = [int(l.split("\t")[2]) for l in stat_out.splitlines()]
     w_in = sum(os.path.getsize(f) for f in sets)
@@ -1343,6 +1421,94 @@ def run_m(torch, tag: str, k: int, fastas) -> dict:
              "(subprocesses beside the port's runs)")
     say(tag, f"weight in -> out: {w_in} -> {w_out} bytes of dumps "
              f"(ratio {w_out / w_in:.4f})")
+    return {"launches": launches, "ref": {
+        "sets": sets, "dir": ref_dir, "stat": ref_stat, "bench": ref_bench,
+        "decompress": ref_dec_err, "compress_s": ref_comp_s,
+        "decompress_s": ref_dec_s,
+    }, "port_s": {"compress": comp_s, "decompress": dec_s, "stat": stat_s,
+                  "bench": bench_s}}
+
+
+# The graph steps a deferred SPSS build takes on the mesh (parallel/
+# driver.py's step names).
+_GRAPH_STEPS = {"front-end", "pointer doubling", "chain grouping and emission",
+                "chain grouping", "overlap edges", "matching"}
+
+
+def run_m_mesh(torch, tag: str, k: int, m: dict, devices: str) -> dict:
+    """Run M's (or M31's) compress, decompress, stat and spss-benchmark
+    through the port's CLIs on the mesh `devices`, each held against the
+    reference outputs that run_m kept (m["ref"]): directory and DOT
+    byte-identical, Hash()/Size(), TSV and spss-benchmark columns equal.
+    The compress log must show the mesh's sketch table, its decodes and
+    its graph steps."""
+    from kmerset_tpu_torch.cli import (kmerset_multiple_compress,
+                                       kmerset_multiple_decompress,
+                                       kmerset_stat, spss_benchmark)
+    from kmerset_tpu_torch.ops import compact, pack
+
+    K, ref = str(k), m["ref"]
+    sets, ref_dir = ref["sets"], ref["dir"]
+    port_dir = os.path.join(WORK, f"M{k}_mesh_{devices.count(',') + 1}")
+    dev = ["--device", devices, "--k", K]
+    pack.launches = pack.launches_pair = compact.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    _, comp_log, comp_s = _capture_run(kmerset_multiple_compress, [
+        *dev, "--seed", "1", "--workers", "4", "--out", port_dir,
+        "--out_graph", port_dir + ".dot", *sets])
+    _, dec_log, dec_s = _capture_run(kmerset_multiple_decompress, [*dev, port_dir])
+    stat_out, _, stat_s = _capture_run(kmerset_stat, [*dev, *sets])
+    bench_out, _, bench_s = _capture_run(spss_benchmark, [*dev, sets[0]])
+    launches = {"B1": pack.launches, "B2": pack.launches_pair,
+                "B3": compact.launches}
+    peak_gib = torch.cuda.max_memory_allocated() / (1 << 30)
+
+    names = sorted(os.listdir(port_dir))
+    if names != sorted(os.listdir(ref_dir)):
+        raise AssertionError(f"{tag}: directories hold other files: {names}")
+    match, mismatch, errors = filecmp.cmpfiles(port_dir, ref_dir, names,
+                                               shallow=False)
+    if mismatch or errors or not filecmp.cmp(port_dir + ".dot",
+                                             ref_dir + ".dot", shallow=False):
+        raise AssertionError(f"{tag}: files differ: {mismatch + errors} "
+                             "(or the DOT files)")
+    dec = [m_.groups() for m_ in map(_HASH_SIZE.search,
+                                     (msg for _, msg in dec_log)) if m_]
+    if dec != _HASH_SIZE.findall(ref["decompress"]):
+        raise AssertionError(f"{tag}: decompressed Hash()/Size() differ")
+    if stat_out != ref["stat"]:
+        raise AssertionError(f"{tag}: kmerset-stat TSV differs")
+    p, r = bench_out.split(), ref["bench"].split()
+    if len(p) != 8 or [p[i] for i in (1, 3, 5, 7)] != [r[i] for i in (1, 3, 5, 7)] \
+            or p[3] != "1" or p[7] != "1":
+        raise AssertionError(f"{tag}: spss-benchmark {p} against {r}")
+    for name in ("B1" if k == 15 else "B2", "B3"):
+        if launches[name] <= 0:
+            raise AssertionError(f"{tag}: kernel {name} was not launched")
+    msgs = [msg for _, msg in comp_log]
+    oracle = [m_.groups() for m_ in map(_ORACLE.search, msgs) if m_]
+    steps = _mesh_steps(msgs)
+    n = devices.count(",") + 1
+    if len(oracle) != 1 or not oracle[0][0].startswith(f"mesh of {n} shards"):
+        raise AssertionError(f"{tag}: the sketch table ran on {oracle}")
+    if "decode" not in steps or "sketch weights" not in steps \
+            or not _GRAPH_STEPS & set(steps):
+        raise AssertionError(f"{tag}: the compress's mesh steps: {steps}")
+    single = m["port_s"]
+    say(tag, f"--k {k} --device {devices}: directory ({len(names)} files) and "
+             "DOT byte-identical to the reference CLI's; decompressed "
+             "Hash()/Size(), kmerset-stat TSV and spss-benchmark weights "
+             f"{p[1]} / {p[5]} and ok equal; launches {launches}; sketch table "
+             f"on {oracle[0][0]}; peak device memory {peak_gib:.3f} GiB")
+    say(tag, f"wall s: compress {comp_s:.3f} (sketch table "
+             f"{float(oracle[0][1]):.4f} s for {oracle[0][2]} pair weights), "
+             f"decompress {dec_s:.3f}, stat {stat_s:.3f}, spss-benchmark "
+             f"{bench_s:.3f}; one device {single['compress']:.3f}, "
+             f"{single['decompress']:.3f}, {single['stat']:.3f}, "
+             f"{single['bench']:.3f}; reference host compress "
+             f"{ref['compress_s']:.3f}, decompress {ref['decompress_s']:.3f}")
+    say(tag, "compress's mesh steps, s: " + ", ".join(
+        f"{name} {v:.4f}" for name, v in steps.items()))
     return {"launches": launches}
 
 
@@ -1425,11 +1591,22 @@ def main() -> int:
                              {15: runs[0]["size"], 23: runs[1]["size"],
                               31: runs[3]["size"]})
     check_mesh_programs(torch, fasta_a, sets)
+    # Its own generator: the later phases' inputs do not depend on it.
+    check_mesh_multiset(torch, np.random.default_rng(SEED + 14), sets["run A"], 15)
     time_mesh_graph(torch, sets["run A"], 15)
     check_sketch(torch, rng)
     strains = write_strains(rng)
-    runs.append(run_m(torch, "11 run M", 15, strains))
-    runs.append(run_m(torch, "13 run M31", 31, strains))
+    m15 = run_m(torch, "11 run M", 15, strains)
+    m31 = run_m(torch, "13 run M31", 31, strains)
+    runs += [m15, m31]
+    # Runs M and M31 again on 4 shards of cuda:0, against the same
+    # reference outputs; over distinct cards where there are several.
+    if n_gpus < 2:
+        say("18 mesh", "one GPU visible: runs M and M31 over distinct cards "
+                       "(cuda:0,cuda:1,...) were not run")
+    for devices in lists:
+        runs.append(run_m_mesh(torch, "18 mesh run M", 15, m15, devices))
+        runs.append(run_m_mesh(torch, "18 mesh run M31", 31, m31, devices))
 
     for kern in kernels:
         name = kern["name"].split()[0]
@@ -1442,7 +1619,7 @@ def main() -> int:
                 if m == "kmerset_tpu" or m.startswith("kmerset_tpu.")]
     if ref_mods:
         raise AssertionError(f"the JAX package was imported: {ref_mods}")
-    say(8, "launch counts over runs A, C, D, E, F, the mesh runs, M and M31: " + ", ".join(
+    say(8, "launch counts over runs A, C, D, E, F, M and M31 and their mesh runs: " + ", ".join(
         f"{k['name'].split()[0]} {k['launches']}" for k in kernels)
         + "; neither jax nor kmerset_tpu in sys.modules; "
         f"{time.perf_counter() - t_start:.1f} s")

@@ -12,7 +12,7 @@ the dump run on the host, in the port's copy of the reference's code.
 A comma-separated --device list (cuda:0,cuda:0,cuda:0,cuda:0 is four
 shards on one card) runs the count, the decode and every graph phase on
 a mesh of those shards (parallel/), the reference's forced mesh.  There
-is no multi-process bring-up yet (ROADMAP A.8b).
+is no multi-process bring-up yet (ROADMAP A.8c).
 """
 
 from __future__ import annotations
@@ -49,7 +49,7 @@ def main(argv=None) -> None:
         "does compression & decompression to see if it is working correctly",
     )
     parser.add_argument("--out", default="", help="output file name")
-    flag_util.add_device_flag(parser, mesh=True)
+    flag_util.add_device_flag(parser)
     parser.add_argument("file", help="path to FASTA file")
     args = flag_util.parse_args(parser, argv)
 

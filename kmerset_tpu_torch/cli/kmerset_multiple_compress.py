@@ -7,10 +7,14 @@ log lines as kmerset_tpu/cli/kmerset_multiple_compress.py, plus --device
 Decoding and sampling the inputs, the pair weights and every deferred
 SPSS build's graph front-end run on the device; the set algebra, the
 chain walk, the path cover and the dumps run on the host, in the port's
-copy of the reference's code.
+copy of the reference's code.  A comma-separated --device list
+(cuda:0,cuda:0,cuda:0,cuda:0 is four shards on one card) runs the
+decodes, the pair weights (a key-range-sharded sketch table) and every
+deferred SPSS build's graph phases on a mesh of those shards
+(parallel/), the reference's forced mesh.
 The directory and the DOT file are byte-identical to the reference's for
-the same inputs and seed.  There is no multi-process bring-up
-(its mesh is ROADMAP A.8b).
+the same inputs and seed.  There is no multi-process bring-up yet
+(ROADMAP A.8c).
 """
 
 from __future__ import annotations
@@ -56,14 +60,15 @@ def main(argv=None) -> None:
     if args.debug:
         enable_debug_logs()
     flag_util.check_k(args.k)
-    device = flag_util.device_or_exit(args, logger)
+    device, mesh = flag_util.devices_or_exit(args, logger)
     flag_util.apply_workers(args)
     cfg = get_config(args.k)
 
     def _load(item):
         i, file = item
         logger.info("reading: i = %d, file = %s", i, file)
-        c = KmerSetCompact.load(cfg.k, file, args.decompressor, device=device)
+        c = KmerSetCompact.load(cfg.k, file, args.decompressor, device=device,
+                                mesh=mesh)
         logger.info("finished reading: i = %d, file = %s", i, file)
         return c
 
@@ -85,7 +90,7 @@ def main(argv=None) -> None:
     with flag_util.trace_context(args, device):
         kss = KmerSetSet(
             compacts, args.canonical, cfg, seed=args.seed,
-            workers=max(1, args.workers), device=device,
+            workers=max(1, args.workers), device=device, mesh=mesh,
         )
     logger.info("constructed kmer_set_set")
 

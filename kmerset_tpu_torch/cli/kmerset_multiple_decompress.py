@@ -5,7 +5,8 @@ Same flags and log lines as kmerset_tpu/cli/kmerset_multiple_decompress.py
 (kmer_set.Hash() and kmer_set.Size() per set, which must equal
 `kmerset-stat` of the original inputs), plus --device (default cuda; a
 missing CUDA device is an error, never a quiet CPU run).  Every file's
-decode runs on the device (kernels B1/B2 and B3).
+decode runs on the device (kernels B1/B2 and B3), or, with a
+comma-separated --device list, on a mesh of those shards (parallel/).
 """
 
 from __future__ import annotations
@@ -38,7 +39,7 @@ def main(argv=None) -> None:
     if args.debug:
         enable_debug_logs()
     flag_util.check_k(args.k)
-    device = flag_util.device_or_exit(args, logger)
+    device, mesh = flag_util.devices_or_exit(args, logger)
     flag_util.apply_workers(args)
     cfg = get_config(args.k)
 
@@ -46,7 +47,7 @@ def main(argv=None) -> None:
     try:
         reader = KmerSetSetReader.from_directory(
             cfg, args.directory, args.extension, args.decompressor,
-            args.canonical, device=device,
+            args.canonical, device=device, mesh=mesh,
         )
     except Exception as e:  # noqa: BLE001
         logger.error("failed to load data: %s", e)

@@ -3,7 +3,9 @@ compact set files.
 
 Same flags, TSV and log lines as kmerset_tpu/cli/kmerset_stat.py, plus
 --device (default cuda; a missing CUDA device is an error, never a quiet
-CPU run).  Each file's decode runs on the device (kernels B1/B2 and B3).
+CPU run).  Each file's decode runs on the device (kernels B1/B2 and B3),
+or, with a comma-separated --device list, on a mesh of those shards
+(parallel/).
 """
 
 from __future__ import annotations
@@ -33,7 +35,7 @@ def main(argv=None) -> None:
     if args.debug:
         enable_debug_logs()
     flag_util.check_k(args.k)
-    device = flag_util.device_or_exit(args, logger)
+    device, mesh = flag_util.devices_or_exit(args, logger)
     flag_util.apply_workers(args)
     cfg = get_config(args.k)
 
@@ -42,7 +44,8 @@ def main(argv=None) -> None:
             logger.info("processing: i = %d, file_name = %s", i, file_name)
             try:
                 compact = KmerSetCompact.load(
-                    cfg.k, file_name, args.decompressor, device=device
+                    cfg.k, file_name, args.decompressor, device=device,
+                    mesh=mesh,
                 )
             except Exception as e:  # noqa: BLE001
                 logger.error("failed to load kmer_set_compact: %s", e)

@@ -7,7 +7,9 @@ plus --device (default cuda; a missing CUDA device is an error, never a
 quiet CPU run).  The input's decode, the unitigs' graph front-end and each
 reconstruction run on the device; the path cover of both modes runs on
 the host, in the port's copy of the reference's code, so the weight and
-ok columns equal the reference's, and the times are this device's.
+ok columns equal the reference's, and the times are this device's.  A
+comma-separated --device list runs the decodes, the unitigs and the path
+cover's graph phases on a mesh of those shards (parallel/).
 """
 
 from __future__ import annotations
@@ -45,7 +47,7 @@ def main(argv=None) -> None:
     if args.debug:
         enable_debug_logs()
     flag_util.check_k(args.k)
-    device = flag_util.device_or_exit(args, logger)
+    device, mesh = flag_util.devices_or_exit(args, logger)
     flag_util.apply_workers(args)
     cfg = get_config(args.k)
     if args.buckets != 1:
@@ -57,7 +59,7 @@ def main(argv=None) -> None:
 
     try:
         compact = KmerSetCompact.load(
-            cfg.k, args.file, args.decompressor, device=device
+            cfg.k, args.file, args.decompressor, device=device, mesh=mesh
         )
     except Exception as e:  # noqa: BLE001
         logger.error("failed to load: %s", e)
@@ -68,7 +70,7 @@ def main(argv=None) -> None:
     logger.info("kmer_set.Hash() = %d", kmer_set.hash())
 
     logger.info("constructing unitigs")
-    unitigs = spss_mod.get_unitigs_canonical(kmer_set, device=device)
+    unitigs = spss_mod.get_unitigs_canonical(kmer_set, device=device, mesh=mesh)
     logger.info("constructed unitigs")
 
     with flag_util.trace_context(args, device):
@@ -78,7 +80,9 @@ def main(argv=None) -> None:
                 logger.info("fast = %s", fast)
 
                 t0 = time.monotonic()
-                spss = spss_mod.get_spss_canonical_from_unitigs(unitigs, cfg.k, fast)
+                spss = spss_mod.get_spss_canonical_from_unitigs(
+                    unitigs, cfg.k, fast, mesh
+                )
                 elapsed = time.monotonic() - t0
                 logger.info("constructed spss: elapsed = %f", elapsed)
                 out.append(f"{elapsed}")
@@ -89,7 +93,7 @@ def main(argv=None) -> None:
 
                 t0 = time.monotonic()
                 reconstructed = spss_mod.get_kmer_set_from_spss(
-                    spss, cfg.k, True, device=device
+                    spss, cfg.k, True, device=device, mesh=mesh
                 )
                 elapsed = time.monotonic() - t0
                 logger.info("reconstructed: elapsed = %f", elapsed)

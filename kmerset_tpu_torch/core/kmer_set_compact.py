@@ -146,15 +146,18 @@ class KmerSetCompact:
 
     @classmethod
     def load(
-        cls, k: int, file_name: str, decompressor: str = "", *, device
+        cls, k: int, file_name: str, decompressor: str = "", *, device,
+        mesh=None,
     ) -> "KmerSetCompact":
-        """A dump's lines as the SPSS, on a device."""
+        """A dump's lines as the SPSS, on a device (its decode on `mesh`
+        where there is one)."""
         data = core_io.read_file_bytes(file_name, decompressor)
         if b"\r" in data:
             # Universal-newline parity with a text-mode reader: a CRLF
             # (or classic-Mac) dump must keep loading.
             data = data.replace(b"\r\n", b"\n").replace(b"\r", b"\n")
-        return cls(k, PackedStrings.from_lines_bytes(data), device=device)
+        return cls(k, PackedStrings.from_lines_bytes(data), device=device,
+                   mesh=mesh)
 
     # -- metrics (reference: kmer_set_compact.h:89-115) --------------------
 

@@ -11,12 +11,15 @@ DAG, so each original set is the union of its residual and every
 reachable descendant (reference: lib/core/kmer_set_set.h:89-775).
 
 Every set they hold or load is the port's KmerSetCompact on their
-device, so each decode runs the device count pipeline (kernels B1/B2 and
-B3) and each deferred SPSS build runs the device graph front-end.  The
-pair weights of the greedy loop come from the port's DeviceSketchTable on
-the same device, always: the reference's oracle choice
-(_make_weight_oracle, :80-177) with its mesh and host routers is not
-carried over.  The set algebra (native sorted merges, or numpy), the
+device, or on their mesh of shards (parallel/mesh.Mesh), so each decode
+runs the device count pipeline (kernels B1/B2 and B3), on the mesh's
+shards where there is one, and each deferred SPSS build runs the device
+graph front-end or the mesh's graph phases.  The pair weights of the
+greedy loop come from the reference's oracle choice (_make_weight_oracle,
+:142-165) without its host oracle and its fallbacks: the port's
+MeshSketchTable on the mesh where parallel/driver.should_use_mesh takes
+the reference's work estimate, else its DeviceSketchTable on the device;
+an error in either raises.  The set algebra (native sorted merges, or numpy), the
 heap, the stopping rule, the seeded bucket sample, the adjacency-list
 format and the DOT and directory dumps are the reference's, so the
 directories are byte-identical to its.
@@ -35,7 +38,8 @@ from typing import Dict, List, Tuple
 import numpy as np
 
 from .. import resolve_device
-from ..ops.sketch import DeviceSketchTable
+from ..ops.sketch import DeviceSketchTable, MeshSketchTable
+from ..parallel import driver as mesh_driver
 from ..utils.random import get_random_ints
 from . import io as core_io
 from . import native
@@ -139,12 +143,14 @@ class KmerSetSet:
         _children: AdjacencyList | None = None,
         *,
         device,
+        mesh=None,
     ):
         """As the reference's (workers > 1 runs the stopping rule's
         deferred SPSS builds in a thread pool, kmer_set_set.py:220-243);
-        the greedy loop's pair weights and the new sets' builds run on
-        `device`."""
+        the greedy loop's pair weights and the new sets' builds and
+        decodes run on `device`, or on `mesh` where its gates take them."""
         self.device = resolve_device(device)
+        self.mesh = mesh
         _check_compacts(kmer_sets_compact)
         self.config = config
         self.canonical = canonical
@@ -176,7 +182,15 @@ class KmerSetSet:
         for s in sets:
             s.pack_in_memory()
         t0 = time.perf_counter()
-        oracle = DeviceSketchTable(sampled, device=self.device)
+        # The reference's work estimate of the all-pairs phase
+        # (kmer_set_set.py:149-150).
+        work = n_inputs * max(1, sum(s.shape[0] for s in sampled)) // 2
+        if mesh_driver.should_use_mesh(self.mesh, work):
+            oracle = MeshSketchTable(sampled, cfg.k, self.mesh)
+            where = str(self.mesh)
+        else:
+            oracle = DeviceSketchTable(sampled, device=self.device)
+            where = str(self.device)
         oracle_s = time.perf_counter() - t0
         n_weighed = 0
 
@@ -243,16 +257,16 @@ class KmerSetSet:
             sets.append(
                 KmerSetCompact.from_kmer_set(
                     KmerSet(cfg.k, inter, _sorted=True), canonical,
-                    lazy=True, device=self.device,
+                    lazy=True, device=self.device, mesh=self.mesh,
                 )
             )
             sets[j] = KmerSetCompact.from_kmer_set(
                 KmerSet(cfg.k, kj2, _sorted=True), canonical, lazy=True,
-                device=self.device,
+                device=self.device, mesh=self.mesh,
             )
             sets[k] = KmerSetCompact.from_kmer_set(
                 KmerSet(cfg.k, kk2, _sorted=True), canonical, lazy=True,
-                device=self.device,
+                device=self.device, mesh=self.mesh,
             )
             oracle.append_row(sets[n].sampled_kmers(cfg, bucket_ids, canonical))
             oracle.set_row(j, sets[j].sampled_kmers(cfg, bucket_ids, canonical))
@@ -276,8 +290,13 @@ class KmerSetSet:
 
         logger.debug(
             "kmer_set_set: sketch table on %s %.4f s (%d pair weights, "
-            "%d rows)", self.device, oracle_s, n_weighed, oracle.n,
+            "%d rows)", where, oracle_s, n_weighed, oracle.n,
         )
+
+    def size(self) -> int:
+        """The number of compact sets: the originals' residuals and the
+        shared children (reference: kmer_set_set.py:384-385)."""
+        return len(self.kmer_sets_compact_)
 
     # -- queries (reference: kmer_set_set.py:390-397) ---------------------
 
@@ -334,9 +353,10 @@ class KmerSetSet:
         workers: int = 1,
         *,
         device,
+        mesh=None,
     ) -> "KmerSetSet":
-        """The reference's load (:435-460) of port compacts on `device`;
-        workers > 1 loads the per-set files as parallel tasks."""
+        """The reference's load (:435-460) of port compacts on `device`, or
+        on `mesh`; workers > 1 loads the per-set files as parallel tasks."""
         meta = core_io.read_lines(
             os.path.join(directory, f"meta.{extension}"), decompressor
         )
@@ -346,17 +366,18 @@ class KmerSetSet:
         def _load_one(i: int) -> KmerSetCompact:
             return KmerSetCompact.load(
                 config.k, os.path.join(directory, f"{i}.{extension}"),
-                decompressor, device=device,
+                decompressor, device=device, mesh=mesh,
             )
 
         sets = _parallel_map(_load_one, range(n), workers)
-        return cls(sets, canonical, config, _children=children, device=device)
+        return cls(sets, canonical, config, _children=children, device=device,
+                   mesh=mesh)
 
 
 class KmerSetSetReader:
     """The reference's Reader (:463-565): reads meta only and loads the
     files reachable from a requested set, as port compacts decoded on
-    `device`."""
+    `device`, or on `mesh`."""
 
     def __init__(
         self,
@@ -369,6 +390,7 @@ class KmerSetSetReader:
         size: int,
         *,
         device,
+        mesh=None,
     ):
         self.config = config
         self.directory = directory
@@ -378,6 +400,7 @@ class KmerSetSetReader:
         self.children_ = children
         self._size = size
         self.device = resolve_device(device)
+        self.mesh = mesh
 
     @classmethod
     def from_directory(
@@ -389,6 +412,7 @@ class KmerSetSetReader:
         canonical: bool,
         *,
         device,
+        mesh=None,
     ) -> "KmerSetSetReader":
         meta = core_io.read_lines(
             os.path.join(directory, f"meta.{extension}"), decompressor
@@ -396,6 +420,7 @@ class KmerSetSetReader:
         return cls(
             config, directory, extension, decompressor, canonical,
             deserialize_adjacency_list(meta[0]), int(meta[1]), device=device,
+            mesh=mesh,
         )
 
     def size(self) -> int:
@@ -407,6 +432,7 @@ class KmerSetSetReader:
             os.path.join(self.directory, f"{idx}.{self.extension}"),
             self.decompressor,
             device=self.device,
+            mesh=self.mesh,
         )
         return s.kmers(self.canonical)
 

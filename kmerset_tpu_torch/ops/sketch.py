@@ -16,12 +16,17 @@ one gather and one compare answer the same question, with no sort:
 exact int64, so the multi-set greedy's tie-break sees the reference's
 weights.
 
+MeshSketchTable (reference :132-225) holds the same rows key-range
+sharded over a mesh (parallel/mesh.Mesh): shard d holds its
+owner_edges range of every row, and parallel/mesh.sharded_sketch_weights
+answers each pair on every shard's range and sums the counts.
+
 Not carried over, because they feed jit caches: the pow2 row and column
 padding and the pow2 batch sizes.  A batch of pairs is bounded by the
 device's memory budget (backend.memory_budget) in place of the
-reference's fixed _MAX_ELEMENTS = 2^26.  The mesh table
-(MeshSketchTable, :132-225) is the multi-set half of the mesh (ROADMAP
-A.8b).
+reference's fixed _MAX_ELEMENTS = 2^26.  The mesh table's shard widths
+are each shard's own (the reference gives every shard the widest whole
+sketch's pow2 width, n times what a shard holds of it).
 """
 
 from __future__ import annotations
@@ -117,3 +122,98 @@ class DeviceSketchTable:
                     self._sk[ia], self._sk[ib]
                 )
             return out.cpu().numpy()
+
+
+class MeshSketchTable:
+    """The sketch table key-range sharded over `mesh` (reference
+    MeshSketchTable, ops/sketch.py:132-225), with DeviceSketchTable's
+    interface.  Shard d holds, on its device, its owner_edges(k, n) range
+    of every row, as an (rows, S_d) matrix.  S_d is the widest of the
+    first sketches' parts in d's range: the greedy loop's later rows are
+    subsets of its first ones, so that is enough, and a row whose part
+    overflows a shard raises.  Pair weights never move a sketch."""
+
+    def __init__(self, sketches: Sequence[np.ndarray], k: int, mesh):
+        from ..parallel.mesh import owner_edges
+
+        self.mesh = mesh
+        self._inner = owner_edges(k, mesh.size)[1:-1]
+        self.n = len(sketches)
+        parts = [self._split(s) for s in sketches]
+        self.widths = [max(1, max((p[d].shape[0] for p in parts), default=1))
+                       for d in range(mesh.size)]
+        self._sk = []
+        for d, dev in enumerate(mesh.devices):
+            mat = np.full((max(1, self.n), self.widths[d]), SENTINEL, dtype=np.int64)
+            for i, p in enumerate(parts):
+                mat[i, : p[d].shape[0]] = p[d]
+            self._sk.append(torch.from_numpy(mat).to(dev))
+
+    @property
+    def rows(self) -> List[torch.Tensor]:
+        """Each shard's live (n, S_d) rows, on its device."""
+        return [sk[: self.n] for sk in self._sk]
+
+    def _split(self, sketch: np.ndarray) -> List[np.ndarray]:
+        """A sorted sketch's part in each shard's key range."""
+        return np.split(sketch, np.searchsorted(sketch, self._inner))
+
+    def _rows_of(self, sketch: np.ndarray) -> List[torch.Tensor]:
+        """A sketch as one padded row per shard, on the shard's device."""
+        out = []
+        for d, part in enumerate(self._split(sketch)):
+            if part.shape[0] > self.widths[d]:
+                raise ValueError(
+                    f"sketch part of size {part.shape[0]} in shard {d}'s range "
+                    f"exceeds its capacity {self.widths[d]}")
+            row = np.full(self.widths[d], SENTINEL, dtype=np.int64)
+            row[: part.shape[0]] = part
+            out.append(torch.from_numpy(row).to(self.mesh.devices[d]))
+        return out
+
+    def set_row(self, i: int, sketch: np.ndarray) -> None:
+        if not 0 <= i < self.n:
+            raise IndexError(f"row {i} of a table of {self.n}")
+        for sk, row in zip(self._sk, self._rows_of(sketch)):
+            sk[i] = row
+
+    def append_row(self, sketch: np.ndarray) -> int:
+        """Appends a row and returns its index; every shard's row capacity
+        doubles when it is full, as DeviceSketchTable's."""
+        rows = self._rows_of(sketch)
+        if self.n == self._sk[0].shape[0]:
+            self._sk = [torch.cat([sk, torch.full_like(sk, SENTINEL)]) for sk in self._sk]
+        for sk, row in zip(self._sk, rows):
+            sk[self.n] = row
+        self.n += 1
+        return self.n - 1
+
+    def batch_pairs(self) -> int:
+        """Pairs per batch: each physical device's memory budget is shared
+        by the shards it holds (at _BYTES_PER_PAIR_SLOT per key slot of
+        their widths), as driver.shard_query_chunk shares it."""
+        per_pair: dict = {}
+        for d in range(self.mesh.size):
+            dev = self.mesh.physical_of(d)
+            per_pair[dev] = per_pair.get(dev, 0) + _BYTES_PER_PAIR_SLOT * self.widths[d]
+        return max(1, min(backend.memory_budget(dev) // b for dev, b in per_pair.items()))
+
+    def pair_weights(self, pairs: List[Tuple[int, int]]) -> np.ndarray:
+        """(len(pairs),) int64 intersection sizes of the (i, j) row pairs:
+        one mesh step (parallel/driver "sketch weights") of batches of
+        parallel/mesh.sharded_sketch_weights."""
+        from ..parallel import driver
+        from ..parallel.mesh import sharded_sketch_weights
+
+        if not pairs:
+            return np.empty(0, dtype=np.int64)
+        idx = np.asarray(pairs, dtype=np.int64).reshape(-1, 2)
+        if idx.min() < 0 or idx.max() >= self.n:
+            raise IndexError(f"a pair names a row outside 0..{self.n - 1}")
+        with driver._step("sketch weights", self.mesh):
+            idx = torch.from_numpy(idx).to(self.mesh.devices[0])
+            batch = self.batch_pairs()
+            blocks = self.rows
+            out = [sharded_sketch_weights(self.mesh, blocks, idx[s : s + batch])
+                   for s in range(0, idx.shape[0], batch)]
+            return torch.cat(out).cpu().numpy()

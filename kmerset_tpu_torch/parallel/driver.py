@@ -86,10 +86,11 @@ logger = logging.getLogger("kmerset")
 
 @contextlib.contextmanager
 def _step(name: str, mesh: Mesh):
-    """One mesh step under Mesh.lock, timed: a debug line "mesh: NAME on
-    N shards: S s" (its results are on the host when it ends)."""
-    t0 = time.perf_counter()
+    """One mesh step under Mesh.lock, timed from when it holds the lock: a
+    debug line "mesh: NAME on N shards: S s" (its results are on the host
+    when it ends)."""
     with mesh.lock():
+        t0 = time.perf_counter()
         yield
     logger.debug("mesh: %s on %d shards: %.4f s", name, mesh.size,
                  time.perf_counter() - t0)

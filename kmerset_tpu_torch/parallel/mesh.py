@@ -1,12 +1,14 @@
 """A 1-D mesh of shards over the k-mer key space, its collectives, and the
-shard programs of kmerset-build.
+shard programs of kmerset-build and of the multi-set CLIs.
 
 Counterpart of kmerset_tpu/parallel/mesh.py: make_mesh and _owner_edges
 (:44-69), the collectives its shard_map bodies use (all_to_all, psum,
-all_gather), and the build half of its programs: sharded_count_fn
+all_gather), the build half of its programs: sharded_count_fn
 (:71-135), the side tables and unitig front-end (:138-516), pointer
 doubling (:518-601), chain grouping and emission (:699-864), matching
-(:866-1037) and overlap edges (:1039-1164).
+(:866-1037) and overlap edges (:1039-1164); and the multi-set half:
+sharded_hash_fn, sharded_set_algebra_fn and sharded_sketch_weights_fn
+(:602-697).
 
 A Mesh is a list of shards, each on an explicit torch.device; several
 shards may share one device (the CPU tests and a one-card machine run
@@ -49,7 +51,8 @@ from ..ops import count as count_ops
 from ..ops.compact import compact_select
 from ..ops.join import lookup_join
 from ..ops.neighbors import candidates, reverse_complement, tables
-from ..ops.pack import key_dtype, key_sentinel
+from ..ops.pack import S_SENT, SENTINEL, key_dtype, key_sentinel
+from ..ops.sketch import _row_intersections
 
 # Pointer doubling exchanges dist in 30 bits beside the done flag
 # (reference mesh.py:538-545): cycle nodes' dist doubles each round.
@@ -121,6 +124,31 @@ class Mesh:
     def psum(self, values: Sequence[int]) -> int:
         """The sum of every shard's value (a host int)."""
         return sum(self.all_gather(values))
+
+    def _reduce(self, values: Sequence[torch.Tensor], shard: int, op):
+        if len(values) != self.size:
+            raise ValueError(f"a reduction takes {self.size} tensors")
+        if any(v.shape != values[0].shape for v in values):
+            raise ValueError("a reduction takes one same-shaped tensor per shard")
+        dev = self.devices[shard]
+        out = values[0].to(dev)
+        for v in values[1:]:
+            out = op(out, v.to(dev))
+        return out
+
+    def sum_to(self, values: Sequence[torch.Tensor], shard: int = 0) -> torch.Tensor:
+        """The element-wise sum of one same-shaped tensor per shard, on
+        shard `shard`'s device (the reference's psum of a vector)."""
+        return self._reduce(values, shard, torch.add)
+
+    def xor_to(self, values: Sequence[torch.Tensor], shard: int = 0) -> torch.Tensor:
+        """The element-wise XOR of one same-shaped integer tensor per shard,
+        on shard `shard`'s device (the reference's all_gather + XOR)."""
+        return self._reduce(values, shard, torch.bitwise_xor)
+
+    def __str__(self) -> str:
+        cards = ",".join(str(d) for d in self.physical())
+        return f"mesh of {self.size} shards ({cards})"
 
 
 def owner_edges(k: int, n_shards: int) -> np.ndarray:
@@ -577,3 +605,91 @@ def sharded_overlap_edges(mesh: Mesh, P, S, k: int, ucap: int):
                         else torch.full_like(recv[d][0], -1)])
     back = from_owners(mesh, routing, answers, fill=-1)
     return [b[0].view(16, -1) for b in back]
+
+
+# -- the multi-set programs (reference mesh.py:602-697) ----------------------
+
+
+def _live(block: torch.Tensor) -> torch.Tensor:
+    """The keys of a sorted block before its sentinel padding (S_SENT for
+    int32 keys, SENTINEL for int64: ops/pack.key_sentinel)."""
+    sent = S_SENT if block.dtype == torch.int32 else SENTINEL
+    return block[: int((block != sent).sum())]
+
+
+def _xor_all(x: torch.Tensor) -> torch.Tensor:
+    """The XOR of every element of a 1-D integer tensor, as a 0-dim tensor
+    (0 for none): halves folded onto each other, log2(n) steps."""
+    if x.numel() == 0:
+        return torch.zeros((), dtype=x.dtype, device=x.device)
+    while x.numel() > 1:
+        if x.numel() % 2:
+            x = torch.cat([x, x.new_zeros(1)])
+        h = x.numel() // 2
+        x = x[:h] ^ x[h:]
+    return x[0]
+
+
+def sharded_hash(mesh: Mesh, blocks) -> int:
+    """The order-independent XOR hash of a key-range-sharded sorted set
+    (blocks[d]: shard d's sorted keys on its device, sentinel padding
+    allowed), as KmerSet.hash returns it (reference sharded_hash_fn,
+    mesh.py:602-618): each shard XORs its live keys, the mesh's XOR
+    reduction joins them.  The empty set hashes to 0."""
+    parts = [_xor_all(_live(b)).to(torch.int64) for b in blocks]
+    return int(mesh.xor_to(parts)) & ((1 << 64) - 1)
+
+
+def _members(x: torch.Tensor, sorted_y: torch.Tensor) -> torch.Tensor:
+    """Whether each element of x is in the sorted tensor sorted_y."""
+    if sorted_y.numel() == 0:
+        return torch.zeros(x.shape, dtype=torch.bool, device=x.device)
+    pos = torch.searchsorted(sorted_y, x).clamp_(max=sorted_y.numel() - 1)
+    return sorted_y[pos] == x
+
+
+def _select(x: torch.Tensor, keep: torch.Tensor) -> torch.Tensor:
+    """x[keep] in order, through kernel B3 (ops/compact.compact_select)."""
+    (out,), n_sel = compact_select([x], keep)
+    return out[: int(n_sel)]
+
+
+def sharded_set_algebra(mesh: Mesh, a_blocks, b_blocks):
+    """Intersection and both differences of two sets held as key-range
+    blocks split at the same owner edges (a_blocks[d], b_blocks[d]: shard
+    d's sorted unique keys, sentinel padding allowed), each shard alone
+    (reference sharded_set_algebra_fn, mesh.py:620-665).  Where the
+    reference classifies a (key, tag) sort and compacts with a second
+    sort, each shard here tests membership with a torch.searchsorted of
+    one block into the other and keeps each class in order with kernel B3
+    (ops/compact.compact_select): the blocks are sorted already.  Returns
+    (inter, a_only, b_only, sizes): per shard its sorted blocks of A ∩ B,
+    A - B and B - A, and the global sizes (3,) int64 on shard 0, summed by
+    the mesh's reduction."""
+    inter, a_only, b_only, sizes = [], [], [], []
+    for a, b in zip(a_blocks, b_blocks):
+        a, b = _live(a), _live(b)
+        in_b = _members(a, b)
+        inter.append(_select(a, in_b))
+        a_only.append(_select(a, ~in_b))
+        b_only.append(_select(b, ~_members(b, a)))
+        sizes.append(torch.tensor([inter[-1].numel(), a_only[-1].numel(),
+                                   b_only[-1].numel()], dtype=torch.int64,
+                                  device=a.device))
+    return inter, a_only, b_only, mesh.sum_to(sizes)
+
+
+def sharded_sketch_weights(mesh: Mesh, blocks, pairs: torch.Tensor) -> torch.Tensor:
+    """Pairwise sketch-intersection sizes over key-range-sharded sketches
+    (reference sharded_sketch_weights_fn, mesh.py:667-697): blocks[d] is
+    shard d's (rows, S_d) int64 matrix, its key range of every sketch
+    (each row sorted, duplicate-free, SENTINEL-padded, S_d >= 1), and
+    pairs a (P, 2) int64 tensor of row pairs.  Each shard answers every
+    pair on its own range with ops/sketch._row_intersections (a batched
+    searchsorted, no sort); the mesh's reduction sums the partial counts.
+    Sketches never move.  Returns (P,) int64 on shard 0."""
+    parts = []
+    for blk in blocks:
+        ia, ib = pairs.to(blk.device).unbind(1)
+        parts.append(_row_intersections(blk[ia], blk[ib]))
+    return mesh.sum_to(parts)

@@ -3,7 +3,7 @@
 The port's copy of kmerset_tpu/utils/flags.py:1-160, without its JAX
 parts: honor_platform_env (:61-83), which re-pins JAX's platform, and
 the jax.profiler trace (:131-142), which is a torch.profiler trace here.
-Added: the port's --device flag, which kmerset-build also takes as a
+Added: the port's --device flag, which every CLI also takes as a
 comma-separated list of shards (a mesh).  The flag surface is otherwise the
 reference's, with the same help strings; boolean flags accept --flag /
 --noflag / --flag=true|false like absl.
@@ -107,14 +107,13 @@ def add_common_flags(
         add_bool_flag(parser, "canonical", True, FLAG_MESSAGES["canonical"])
 
 
-def add_device_flag(parser, mesh: bool = False) -> None:
-    help_ = "torch device for counting and decoding: cuda (default) or cpu"
-    if mesh:
-        help_ += (
-            "; a comma-separated list (e.g. cuda:0,cuda:1 or cpu,cpu,cpu,cpu)"
-            " runs on a mesh of those shards"
-        )
-    parser.add_argument("--device", default="cuda", help=help_)
+def add_device_flag(parser) -> None:
+    parser.add_argument(
+        "--device", default="cuda",
+        help="torch device for counting and decoding: cuda (default) or cpu;"
+        " a comma-separated list (e.g. cuda:0,cuda:1 or cpu,cpu,cpu,cpu)"
+        " runs on a mesh of those shards",
+    )
 
 
 def apply_workers(args) -> None:
@@ -150,22 +149,6 @@ def devices_or_exit(args, logger) -> Tuple[torch.device, Optional[Mesh]]:
     if len(devs) > 1:
         return devs[0], Mesh(devs)
     return devs[0], auto_mesh(devs[0])
-
-
-def device_or_exit(args, logger) -> torch.device:
-    """The one device of --device for the CLIs that do not run on a mesh
-    yet; exits 1 on a device that is not there and on a list."""
-    if "," in str(args.device):
-        logger.error(
-            "--device %s: a list of shards (a mesh) is taken by "
-            "kmerset-build only", args.device,
-        )
-        sys.exit(1)
-    try:
-        return resolve_device(args.device)
-    except (RuntimeError, ValueError) as e:
-        logger.error("%s", e)
-        sys.exit(1)
 
 
 @contextlib.contextmanager

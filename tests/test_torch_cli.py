@@ -387,17 +387,132 @@ def test_device_list_with_a_missing_device_exits_1_like_one_device(bad):
     assert bad.split(":")[0] in single[2][0]
 
 
-def test_clis_without_a_mesh_refuse_a_device_list():
-    """kmerset-stat, the multi-set CLIs and spss-benchmark take one
-    device; a list exits 1 instead of running on part of it."""
-    from kmerset_tpu_torch.utils import flags
+_MULTI_CLIS = ["kmerset_stat", "kmerset_multiple_compress",
+               "kmerset_multiple_decompress", "spss_benchmark"]
 
-    code, _, errors = _errors_of(
-        lambda log: flags.device_or_exit(_device_args("cpu,cpu"), log))
-    assert code == 1 and "kmerset-build only" in errors[0]
-    code, device, _ = _errors_of(
-        lambda log: flags.device_or_exit(_device_args("cpu"), log))
-    assert code is None and device == torch.device("cpu")
+
+@pytest.fixture(scope="module")
+def small_sets(tmp_path_factory):
+    """Three small compact set files (k = 15) and their joint compression
+    on one CPU device."""
+    from kmerset_tpu_torch.core.config import get_config
+    from kmerset_tpu_torch.core.kmer_set import KmerSet
+    from kmerset_tpu_torch.core.kmer_set_compact import KmerSetCompact
+    from kmerset_tpu_torch.core.kmer_set_set import KmerSetSet
+
+    from .test_torch_kmer_set_set import _strains
+
+    d = tmp_path_factory.mktemp("small")
+    files, compacts = [], []
+    for i, a in enumerate(_strains(15, 3, 17, 3000)):
+        compacts.append(KmerSetCompact.from_kmer_set(
+            KmerSet(15, a, _sorted=True), True, device="cpu"))
+        files.append(str(d / f"s{i}.txt"))
+        compacts[-1].dump(files[-1])
+    out = str(d / "M")
+    KmerSetSet(compacts, True, get_config(15), seed=1, device="cpu").dump(out, "", "txt")
+    return files, out
+
+
+@pytest.mark.parametrize("cli", _MULTI_CLIS)
+def test_clis_take_a_device_list(small_sets, cli, tmp_path, monkeypatch):
+    """kmerset-stat, the multi-set CLIs and spss-benchmark take
+    `--device cpu,cpu,cpu,cpu` and exit 0, their decodes on the mesh of
+    four CPU shards."""
+    import importlib
+
+    from kmerset_tpu_torch.parallel import driver
+
+    files, directory = small_sets
+    args = {
+        "kmerset_stat": files,
+        "kmerset_multiple_compress": ["--out", str(tmp_path / "M"), *files],
+        "kmerset_multiple_decompress": [directory],
+        "spss_benchmark": files[:1],
+    }[cli]
+    shards = []
+    orig = driver.mesh_count
+    monkeypatch.setattr(driver, "mesh_count", lambda *a, **kw: shards.append(
+        a[4].size) or orig(*a, **kw))
+    main = importlib.import_module(f"kmerset_tpu_torch.cli.{cli}").main
+    try:
+        main(["--device", "cpu,cpu,cpu,cpu", "--k", "15", *args])
+    except SystemExit as e:
+        assert e.code in (None, 0), e.code
+    assert shards and set(shards) == {4}
+
+
+@pytest.fixture(scope="module")
+def mesh_runs(strain_sets):
+    """The four CLIs of the port on `--device cpu,cpu,cpu,cpu` over
+    strain_sets' files (compress first, the rest beside each other), and
+    the reference's decompress, stat and spss-benchmark on its host path:
+    {name: CompletedProcess}."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    k, files, runs = strain_sets
+    K = str(k)
+    port = "kmerset_tpu_torch.cli."
+    mesh = ["--device", "cpu,cpu,cpu,cpu", "--k", K]
+    out = runs["ref"][0] + "_mesh"
+    jobs = {
+        "compress": (port + "kmerset_multiple_compress", *mesh, "--debug",
+                     "--workers", "4", "--seed", "1", "--out", out,
+                     "--out_graph", out + ".dot", *files),
+    }
+    done = {"compress": _run(*jobs["compress"])}
+    jobs = {
+        "decompress": (port + "kmerset_multiple_decompress", *mesh, out),
+        "stat": (port + "kmerset_stat", *mesh, *files),
+        "bench": (port + "spss_benchmark", *mesh, files[0]),
+        "ref decompress": ("kmerset_tpu.cli.kmerset_multiple_decompress",
+                           "--k", K, runs["ref"][0]),
+        "ref stat": ("kmerset_tpu.cli.kmerset_stat", "--k", K, *files),
+        "ref bench": ("kmerset_tpu.cli.spss_benchmark", "--k", K, files[0]),
+    }
+    with ThreadPoolExecutor(len(jobs)) as ex:
+        futures = {name: ex.submit(_run, *job) for name, job in jobs.items()}
+        done.update((name, f.result()) for name, f in futures.items())
+    for name, proc in done.items():
+        assert proc.returncode == 0, (name, proc.stderr)
+    return out, done
+
+
+@pytest.mark.parametrize("cli", _MULTI_CLIS)
+def test_clis_on_a_device_list_match_reference(strain_sets, mesh_runs, cli):
+    """Each CLI on `--device cpu,cpu,cpu,cpu` against the reference's host
+    CLI: the compress directory and DOT bytes (its --debug log shows the
+    mesh's sketch table, decodes and graph steps), the decompressed
+    Hash()/Size() lines, the stat TSV, spss-benchmark's weight and ok
+    columns."""
+    import filecmp
+
+    _, files, runs = strain_sets
+    out, done = mesh_runs
+    if cli == "kmerset_multiple_compress":
+        ref = runs["ref"][0]
+        names = sorted(os.listdir(out))
+        assert names == sorted(os.listdir(ref)) and len(names) > 6
+        for name in names:
+            assert filecmp.cmp(os.path.join(out, name), os.path.join(ref, name),
+                               shallow=False), name
+        assert filecmp.cmp(out + ".dot", ref + ".dot", shallow=False)
+        log = done["compress"].stderr
+        assert "kmer_set_set: sketch table on mesh of 4 shards (cpu)" in log
+        for step in ("sketch weights", "decode", "front-end", "pointer doubling"):
+            assert f"mesh: {step} on 4 shards: " in log, step
+    elif cli == "kmerset_multiple_decompress":
+        got = _HASH_SIZE.findall(done["decompress"].stderr)
+        assert got == _HASH_SIZE.findall(done["ref decompress"].stderr)
+        assert len(got) > 2 * len(files)
+    elif cli == "kmerset_stat":
+        assert done["stat"].stdout == done["ref stat"].stdout
+        assert len(done["stat"].stdout.splitlines()) == len(files)
+    else:
+        p, r = done["bench"].stdout.split(), done["ref bench"].stdout.split()
+        assert len(p) == len(r) == 8
+        assert [p[i] for i in (1, 3, 5, 7)] == [r[i] for i in (1, 3, 5, 7)]
+        assert p[3] == p[7] == "1"
 
 
 def test_build_cli_on_a_device_list_in_a_subprocess(fasta, tmp_path):

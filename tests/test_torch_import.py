@@ -61,6 +61,14 @@ with open(mesh_out, "rb") as f, open(sets[-1], "rb") as g:
     assert f.read() == g.read()
 d = os.path.join(work, "M")
 kmerset_multiple_compress.main(["--device", "cpu", "--k", "15", "--out", d, *sets])
+# The same compression on a mesh of two CPU shards (its sharded sketch
+# table, decodes and deferred builds): the same directory.
+dm = os.path.join(work, "Mm")
+kmerset_multiple_compress.main(["--device", "cpu,cpu", "--k", "15", "--out", dm, *sets])
+assert sorted(os.listdir(dm)) == sorted(os.listdir(d))
+for name in os.listdir(d):
+    with open(os.path.join(d, name), "rb") as f, open(os.path.join(dm, name), "rb") as g:
+        assert f.read() == g.read(), name
 log = io.StringIO()
 logger = __import__("logging").getLogger("kmerset")
 logger.addHandler(__import__("logging").StreamHandler(log))
@@ -79,8 +87,8 @@ print(len(names))
 
 def test_port_imports_and_counts_without_jax(tmp_path):
     """With jax and kmerset_tpu blocked: every module imports, parallel/
-    included, and the build (on one device and on a mesh of two CPU
-    shards), compress, decompress and stat CLIs run on the CPU."""
+    included, and the build and compress (each on one device and on a
+    mesh of two CPU shards), decompress and stat CLIs run on the CPU."""
     env = dict(os.environ)
     env.pop("KMERSET_TPU_FORCE_BACKEND", None)
     proc = subprocess.run(
