@@ -64,8 +64,19 @@ files, equal hashes, sizes, TSV and weights.  Phase 18 runs M's and
 M31's compress, decompress, stat and spss-benchmark again on 4 shards of
 one card (and over every card where there are several) against the same
 reference outputs; the compress must take the mesh's sketch table, and
-decode and build on the mesh.  Inputs are made from fixed seeds under
-build/chip_smoke/.
+decode and build on the mesh.  Phase 19 runs the port's CLIs as a
+process group of two ranks over KMERSET_TPU_DISTRIBUTED, both on cuda:0
+(rank 0 with two shards, rank 1 with one: the exchanges go through the
+host, gloo, since both ranks hold the card): runs A and C (each rank's
+dump byte-identical to the reference dump of phases 5 and 6) and run M's
+compress (`--workers 4`; each rank's directory and DOT byte-identical to
+phase 11's reference); each rank's launch counts join the kernels line,
+and its wall and mesh steps print beside the single-process 3-shard mesh
+and the single device (for run M also the single-process mesh with
+--workers 1: the item order a group imposes).  It also runs run C in a group of one rank on
+`cuda:0,cuda:0`, whose exchanges go over NCCL on the card, and over one
+rank per card (NCCL) where there are several cards.  Inputs are made
+from fixed seeds under build/chip_smoke/.
 
 Each phase prints one line.  The line before the last is a JSON summary of
 the kernels; the last line is {"ok": true, "device": {...}}.  Any failure
@@ -776,7 +787,8 @@ def main_path_run(torch, tag: str, fasta: str, k: int, cutoff: int,
                  f"{spss['front-end download']:.4f}]; host walk + emission + "
                  f"path cover {host:.2f} [" + ", ".join(
                      f"{p} {spss[p]:.2f}" for p in _PHASES[1:]) + "]")
-    return {"launches": launches, "size": mine["kmer_set.Size()"], **times}
+    return {"launches": launches, "size": mine["kmer_set.Size()"],
+            "steps": steps, **times}
 
 
 _LUT = np.full(256, 255, dtype=np.uint8)
@@ -1429,6 +1441,189 @@ def run_m(torch, tag: str, k: int, fastas) -> dict:
                   "bench": bench_s}}
 
 
+# A rank of a process group: the port's CLI (argv[1]) with argv[2:], its
+# log lines to stderr one message per line, then its wall split and
+# launch counts as JSON on stdout.
+_RANK_CLI = (
+    "import importlib, json, logging, sys, time\n"
+    "t0 = time.perf_counter()\n"
+    "from kmerset_tpu_torch.ops import compact, pack\n"
+    "cli = importlib.import_module('kmerset_tpu_torch.cli.' + sys.argv[1])\n"
+    "log = logging.getLogger('kmerset')\n"
+    "echo = logging.StreamHandler(sys.stderr)\n"
+    "echo.setFormatter(logging.Formatter('%(message)s'))\n"
+    "log.addHandler(echo)\n"
+    "log.propagate = False\n"
+    "t1 = time.perf_counter()\n"
+    "cli.main(sys.argv[2:])\n"
+    "print(json.dumps({'import_s': t1 - t0, 'cli_s': time.perf_counter() - t1,\n"
+    "                  'launches': {'B1': pack.launches,\n"
+    "                               'B2': pack.launches_pair,\n"
+    "                               'B3': compact.launches}}))\n"
+)
+GROUP_TIMEOUT_S = 600
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def group_run(tag: str, cli: str, devices, args_of) -> list:
+    """The port's CLI `cli` as len(devices) ranks of one process group
+    (KMERSET_TPU_DISTRIBUTED on a free local port), rank r on --device
+    devices[r] with args_of(r), all started at once.  Returns per rank
+    {"import_s", "cli_s", "launches", "log" (message lines), "steps"}.
+    A rank that exits non-zero or outlives GROUP_TIMEOUT_S fails the run,
+    and every rank still running is killed."""
+    port = _free_port()
+    procs = []
+    t0 = time.perf_counter()
+    try:
+        for r, dev in enumerate(devices):
+            err = open(os.path.join(WORK, f"{tag.replace(' ', '_')}_rank{r}.log"), "w+")
+            env = dict(os.environ, KMERSET_TPU_DISTRIBUTED=
+                       f"127.0.0.1:{port},{len(devices)},{r}")
+            procs.append((subprocess.Popen(
+                [sys.executable, "-c", _RANK_CLI, cli, "--debug", "--device",
+                 dev, *args_of(r)], cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                stderr=err, text=True), err))
+        out = []
+        for r, (proc, err) in enumerate(procs):
+            left = GROUP_TIMEOUT_S - (time.perf_counter() - t0)
+            try:
+                stdout, _ = proc.communicate(timeout=max(1.0, left))
+            except subprocess.TimeoutExpired:
+                raise AssertionError(f"{tag}: rank {r} outlived {GROUP_TIMEOUT_S} s")
+            err.seek(0)
+            log = err.read().splitlines()
+            if proc.returncode != 0:
+                raise AssertionError(f"{tag}: rank {r} exited {proc.returncode}:\n"
+                                     + "\n".join(log[-40:]))
+            info = json.loads(stdout.strip().splitlines()[-1])
+            out.append({**info, "log": log, "steps": _mesh_steps(log)})
+    finally:
+        for proc, err in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            err.close()
+    return out
+
+
+def _need_lines(tag: str, log, lines) -> None:
+    for line in lines:
+        if line not in log:
+            raise AssertionError(f"{tag}: no line {line!r} in the log")
+
+
+def _rank_line(ranks) -> str:
+    return "; ".join(
+        f"rank {r} wall {x['import_s'] + x['cli_s']:.3f} (import "
+        f"{x['import_s']:.3f}), launches {x['launches']}, mesh steps "
+        + ", ".join(f"{n} {v:.4f}" for n, v in x["steps"].items())
+        for r, x in enumerate(ranks))
+
+
+def group_build(tag: str, fasta: str, k: int, ref, kernels, devices,
+                mesh_line: str, single_s: float, three) -> dict:
+    """kmerset-build --cutoff 1 --check of `fasta` at k as a process group
+    (rank r on devices[r]), each rank's dump held against the reference
+    dump `ref.out`; each rank's log must show the group's mesh line
+    (mesh_line), its --check ok and the count, decode and graph steps,
+    and each rank must launch `kernels`."""
+    outs = [os.path.join(WORK, f"{tag.replace(' ', '_')}_rank{r}.txt")
+            for r in range(len(devices))]
+    ranks = group_run(tag, "kmerset_build", devices, lambda r: [
+        "--k", str(k), "--cutoff", "1", "--check", "--out", outs[r], fasta])
+    n = sum(d.count(",") + 1 for d in devices)
+    for r, (x, out) in enumerate(zip(ranks, outs)):
+        if not filecmp.cmp(out, ref.out, shallow=False):
+            raise AssertionError(f"{tag}: rank {r}'s dump differs from the reference's")
+        _need_lines(f"{tag} rank {r}", x["log"], [
+            mesh_line, "kmer_set_compact -> KmerSet: ok"])
+        need = {"count", "decode", "front-end", "pointer doubling"}
+        if not need <= set(x["steps"]):
+            raise AssertionError(f"{tag}: rank {r}'s mesh steps {x['steps']}")
+        for name in kernels:
+            if x["launches"][name] <= 0:
+                raise AssertionError(f"{tag}: rank {r} launched no {name}")
+    say(tag, f"--k {k} --cutoff 1 --check, {len(devices)} ranks on --device "
+             f"{' / '.join(devices)} ({n} shards): every rank's dump "
+             f"byte-identical to the reference CLI's; {mesh_line!r}")
+    say(tag, "wall s: " + _rank_line(ranks))
+    if three is not None:
+        say(tag, f"beside: the single-process {n}-shard mesh {three['total_s']:.3f} s "
+                 f"(mesh steps " + ", ".join(f"{a} {v:.4f}" for a, v in
+                                             three["steps"].items())
+                 + f"), one device {single_s:.3f} s")
+    return {"launches": {name: sum(x["launches"][name] for x in ranks)
+                         for name in ("B1", "B2", "B3")}}
+
+
+def serial_compress(m: dict, devices: str) -> float:
+    """Run M's compress in one process on the mesh `devices` with
+    --workers 1, the order a process group imposes on its deferred builds
+    (items in order, one at a time); its directory and DOT held against
+    the reference's.  Returns its wall s."""
+    from kmerset_tpu_torch.cli import kmerset_multiple_compress
+
+    ref = m["ref"]
+    out = os.path.join(WORK, "M15_serial")
+    _, _, secs = _capture_run(kmerset_multiple_compress, [
+        "--device", devices, "--k", "15", "--seed", "1", "--workers", "1",
+        "--out", out, "--out_graph", out + ".dot", *ref["sets"]])
+    names = sorted(os.listdir(ref["dir"]))
+    _, mismatch, errors = filecmp.cmpfiles(out, ref["dir"], names, shallow=False)
+    if mismatch or errors or not filecmp.cmp(out + ".dot", ref["dir"] + ".dot",
+                                             shallow=False):
+        raise AssertionError("run M's compress with --workers 1 differs")
+    return secs
+
+
+def group_compress(tag: str, m: dict, devices, mesh_line: str,
+                   three: dict) -> dict:
+    """Run M's kmerset-multiple-compress (--seed 1 --workers 4) as a
+    process group, each rank's directory and DOT file held against the
+    reference's of phase 11 (m["ref"])."""
+    ref = m["ref"]
+    dirs = [os.path.join(WORK, f"M15_group_rank{r}") for r in range(len(devices))]
+    ranks = group_run(tag, "kmerset_multiple_compress", devices, lambda r: [
+        "--k", "15", "--seed", "1", "--workers", "4", "--out", dirs[r],
+        "--out_graph", dirs[r] + ".dot", *ref["sets"]])
+    names = sorted(os.listdir(ref["dir"]))
+    n = sum(d.count(",") + 1 for d in devices)
+    for r, (x, d) in enumerate(zip(ranks, dirs)):
+        _, mismatch, errors = filecmp.cmpfiles(d, ref["dir"], names, shallow=False)
+        if sorted(os.listdir(d)) != names or mismatch or errors or not filecmp.cmp(
+                d + ".dot", ref["dir"] + ".dot", shallow=False):
+            raise AssertionError(f"{tag}: rank {r}'s directory or DOT differs")
+        _need_lines(f"{tag} rank {r}", x["log"], [mesh_line])
+        if not any("run in item order" in line for line in x["log"]):
+            raise AssertionError(f"{tag}: rank {r} ran its deferred builds in a pool")
+        if not {"decode", "sketch weights"} <= set(x["steps"]) \
+                or not _GRAPH_STEPS & set(x["steps"]):
+            raise AssertionError(f"{tag}: rank {r}'s mesh steps {x['steps']}")
+        for name in ("B1", "B3"):
+            if x["launches"][name] <= 0:
+                raise AssertionError(f"{tag}: rank {r} launched no {name}")
+    say(tag, f"--k 15 --seed 1 --workers 4, {len(devices)} ranks on --device "
+             f"{' / '.join(devices)} ({n} shards): every rank's directory "
+             f"({len(names)} files) and DOT byte-identical to the reference "
+             "CLI's; deferred builds in item order")
+    say(tag, "wall s: " + _rank_line(ranks))
+    say(tag, f"beside: the single-process {n}-shard mesh's compress "
+             f"{three['compress_s']:.3f} s with --workers 4 (mesh steps "
+             + ", ".join(f"{a} {v:.4f}" for a, v in three["steps"].items())
+             + f") and {three['serial_s']:.3f} s with --workers 1 (item "
+             f"order, as in a group), one device {m['port_s']['compress']:.3f} s")
+    return {"launches": {name: sum(x["launches"][name] for x in ranks)
+                         for name in ("B1", "B2", "B3")}}
+
+
 # The graph steps a deferred SPSS build takes on the mesh (parallel/
 # driver.py's step names).
 _GRAPH_STEPS = {"front-end", "pointer doubling", "chain grouping and emission",
@@ -1509,7 +1704,7 @@ def run_m_mesh(torch, tag: str, k: int, m: dict, devices: str) -> dict:
              f"{ref['compress_s']:.3f}, decompress {ref['decompress_s']:.3f}")
     say(tag, "compress's mesh steps, s: " + ", ".join(
         f"{name} {v:.4f}" for name, v in steps.items()))
-    return {"launches": launches}
+    return {"launches": launches, "compress_s": comp_s, "steps": steps}
 
 
 def main() -> int:
@@ -1608,6 +1803,46 @@ def main() -> int:
         runs.append(run_m_mesh(torch, "18 mesh run M", 15, m15, devices))
         runs.append(run_m_mesh(torch, "18 mesh run M31", 31, m31, devices))
 
+    # A process group of two ranks sharing cuda:0 (3 shards, uneven):
+    # runs A and C and run M's compress, beside the single-process 3-shard
+    # mesh; then run C in a one-rank group on NCCL, and over one rank per
+    # card where there are several.
+    t19 = time.perf_counter()
+    torch.cuda.empty_cache()  # the ranks plan with the card's free memory
+    shared = ("cuda:0,cuda:0", "cuda:0")
+    gloo_line = ("mesh: 3 shards over 2 processes, cuda:0 shared by 2 ranks: "
+                 "exchanges through the host (gloo)")
+    for i in (0, 1):
+        tag, fasta, k, _, need, _ = plan[i]
+        three = main_path_run(
+            torch, f"19 group {tag.split(maxsplit=1)[1]} 3 shards", fasta, k, 1,
+            RefDone(refs[i], runs[i]["reference_host_total_s"]), need,
+            device=",".join(["cuda:0"] * 3))
+        runs.append(three)
+        runs.append(group_build(f"19 group {tag.split(maxsplit=1)[1]}",
+                                fasta, k, refs[i], need, shared, gloo_line,
+                                runs[i]["total_s"], three))
+    three = run_m_mesh(torch, "19 group run M 3 shards", 15, m15,
+                       ",".join(["cuda:0"] * 3))
+    runs.append(three)
+    three["serial_s"] = serial_compress(m15, ",".join(["cuda:0"] * 3))
+    runs.append(group_compress("19 group run M", m15, shared, gloo_line,
+                               three))
+    runs.append(group_build(
+        "19 group run C nccl", fasta_a, 23, refs[1], ("B2", "B3"),
+        ("cuda:0,cuda:0",), "mesh: 2 shards over 1 processes, each card held "
+        "by one rank: exchanges on the cards (NCCL)", runs[1]["total_s"], None))
+    if n_gpus >= 2:
+        runs.append(group_build(
+            "19 group run C cards", fasta_a, 23, refs[1], ("B2", "B3"),
+            tuple(f"cuda:{i}" for i in range(n_gpus)),
+            f"mesh: {n_gpus} shards over {n_gpus} processes, each card held by "
+            "one rank: exchanges on the cards (NCCL)", runs[1]["total_s"], None))
+    else:
+        say("19 group", "one GPU visible: run C over one rank per card (NCCL "
+                        "across distinct cards) was not run")
+    say("19 group", f"phase 19 took {time.perf_counter() - t19:.1f} s")
+
     for kern in kernels:
         name = kern["name"].split()[0]
         kern["launches"] = sum(run["launches"][name] for run in runs)
@@ -1619,7 +1854,8 @@ def main() -> int:
                 if m == "kmerset_tpu" or m.startswith("kmerset_tpu.")]
     if ref_mods:
         raise AssertionError(f"the JAX package was imported: {ref_mods}")
-    say(8, "launch counts over runs A, C, D, E, F, M and M31 and their mesh runs: " + ", ".join(
+    say(8, "launch counts over runs A, C, D, E, F, M and M31, their mesh "
+           "runs and the process-group runs' ranks: " + ", ".join(
         f"{k['name'].split()[0]} {k['launches']}" for k in kernels)
         + "; neither jax nor kmerset_tpu in sys.modules; "
         f"{time.perf_counter() - t_start:.1f} s")

@@ -11,8 +11,11 @@ cutoff filter, the chain walk, the string emission, the path cover and
 the dump run on the host, in the port's copy of the reference's code.
 A comma-separated --device list (cuda:0,cuda:0,cuda:0,cuda:0 is four
 shards on one card) runs the count, the decode and every graph phase on
-a mesh of those shards (parallel/), the reference's forced mesh.  There
-is no multi-process bring-up yet (ROADMAP A.8c).
+a mesh of those shards (parallel/), the reference's forced mesh.  With
+KMERSET_TPU_DISTRIBUTED=addr:port,N,i (or auto) the process joins a
+torch.distributed group of N ranks, as the reference's does, and
+--device names this rank's shards of one mesh over the group; every rank
+reads the same input and writes the same dump.
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ from ..core import io as core_io
 from ..core.config import get_config
 from ..core.kmer_counter import KmerCounter
 from ..core.kmer_set_compact import KmerSetCompact
+from ..parallel import driver as mesh_driver
 from ..utils import flags as flag_util
 from ..utils.log import enable_debug_logs, init_default_logger
 
@@ -57,7 +61,9 @@ def main(argv=None) -> None:
     if args.debug:
         enable_debug_logs()
     flag_util.check_k(args.k)
-    device, mesh = flag_util.devices_or_exit(args, logger)
+    # Multi-process bring-up (KMERSET_TPU_DISTRIBUTED), at the
+    # reference's point: --device then names this rank's shards.
+    device, mesh = flag_util.devices_or_exit(args, logger, distributed=True)
     flag_util.apply_workers(args)
     cfg = get_config(args.k)
 
@@ -106,6 +112,7 @@ def main(argv=None) -> None:
         except core_io.IOError_ as e:
             logger.error("failed to dump kmer_set_compact: %s", e)
             sys.exit(1)
+    mesh_driver.end_distributed()
 
 
 if __name__ == "__main__":

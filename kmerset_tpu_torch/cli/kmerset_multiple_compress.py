@@ -11,10 +11,13 @@ copy of the reference's code.  A comma-separated --device list
 (cuda:0,cuda:0,cuda:0,cuda:0 is four shards on one card) runs the
 decodes, the pair weights (a key-range-sharded sketch table) and every
 deferred SPSS build's graph phases on a mesh of those shards
-(parallel/), the reference's forced mesh.
+(parallel/), the reference's forced mesh.  With
+KMERSET_TPU_DISTRIBUTED=addr:port,N,i (or auto) the process joins a
+torch.distributed group of N ranks, as the reference's does, and
+--device names this rank's shards of one mesh over the group; every rank
+reads the same inputs and writes the same directory.
 The directory and the DOT file are byte-identical to the reference's for
-the same inputs and seed.  There is no multi-process bring-up yet
-(ROADMAP A.8c).
+the same inputs and seed.
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ from concurrent.futures import ThreadPoolExecutor
 from ..core.config import get_config
 from ..core.kmer_set_compact import KmerSetCompact
 from ..core.kmer_set_set import KmerSetSet
+from ..parallel import driver as mesh_driver
 from ..utils import flags as flag_util
 from ..utils.log import enable_debug_logs, init_default_logger
 
@@ -60,7 +64,9 @@ def main(argv=None) -> None:
     if args.debug:
         enable_debug_logs()
     flag_util.check_k(args.k)
-    device, mesh = flag_util.devices_or_exit(args, logger)
+    # Multi-process bring-up (KMERSET_TPU_DISTRIBUTED), at the
+    # reference's point: --device then names this rank's shards.
+    device, mesh = flag_util.devices_or_exit(args, logger, distributed=True)
     flag_util.apply_workers(args)
     cfg = get_config(args.k)
 
@@ -111,6 +117,7 @@ def main(argv=None) -> None:
         except Exception as e:  # noqa: BLE001
             logger.error("failed to dump kmer_set_set: %s", e)
             sys.exit(1)
+    mesh_driver.end_distributed()
 
 
 if __name__ == "__main__":

@@ -87,12 +87,31 @@ def _pop_best_pair(heap, weights):
     return None
 
 
-def _parallel_map(fn, items, workers: int) -> list:
+_serial_noted = False
+
+
+def _parallel_map(fn, items, workers: int, mesh=None) -> list:
     """ex.map-or-sequential over independent items — the one-task-per-
     item pool shape the reference uses for its file/build fan-outs
     (kmer_set_set.h:494-528,583-607,704-745).  Results in item order;
-    the first exception propagates either way."""
+    the first exception propagates either way.
+
+    Items that may take steps on a `mesh` spanning processes run serially,
+    in item order: in a pool their steps would queue on the mesh's lock
+    in thread order, which differs between ranks, and the ranks'
+    collectives would fall out of step.  Such items are a deferred SPSS
+    build, the dump of a set whose build is still deferred (the last
+    merges before the heap runs out), and a Reader's load, which decodes
+    on the mesh."""
+    global _serial_noted
     items = list(items)
+    if mesh is not None and mesh.group is not None:
+        if workers > 1 and len(items) > 1 and not _serial_noted:
+            _serial_noted = True
+            logger.info("kmer_set_set: the mesh spans %d processes: items "
+                        "that take mesh steps run in item order, not in "
+                        "%d workers", mesh.n_ranks, workers)
+        return [fn(it) for it in items]
     if workers > 1 and len(items) > 1:
         with ThreadPoolExecutor(max_workers=workers) as ex:
             return list(ex.map(fn, items))
@@ -216,7 +235,7 @@ class KmerSetSet:
             _parallel_map(
                 lambda s: s.spss,
                 [s for s in sets if s._pending is not None],
-                workers,
+                workers, self.mesh,
             )
             w = sum(s.weight() for s in sets)
             for s in sets:
@@ -331,7 +350,8 @@ class KmerSetSet:
                 os.path.join(directory, f"{i}.{extension}"), compressor
             )
 
-        _parallel_map(_dump_one, range(len(self.kmer_sets_compact_)), workers)
+        _parallel_map(_dump_one, range(len(self.kmer_sets_compact_)), workers,
+                      self.mesh)
 
     def dump_graph(self, file_name: str) -> None:
         """DOT format (reference: kmer_set_set.h:532-547)."""
@@ -438,7 +458,7 @@ class KmerSetSetReader:
 
     def get(self, i: int, workers: int = 1) -> KmerSet:
         parts = _parallel_map(
-            self._load, reachable_ids(self.children_, i), workers
+            self._load, reachable_ids(self.children_, i), workers, self.mesh
         )
         return KmerSet(
             self.config.k, sorted_unique(np.concatenate(parts)), _sorted=True
@@ -463,7 +483,7 @@ class KmerSetSetReader:
             for i in range(n):
                 ids = reach[i]
                 missing = [j for j in ids if j not in cache]
-                loaded = _parallel_map(self._load, missing, workers)
+                loaded = _parallel_map(self._load, missing, workers, self.mesh)
                 cache.update(zip(missing, loaded))
                 parts = [cache[j] for j in ids]
                 for j in ids:

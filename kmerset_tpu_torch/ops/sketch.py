@@ -128,10 +128,13 @@ class MeshSketchTable:
     """The sketch table key-range sharded over `mesh` (reference
     MeshSketchTable, ops/sketch.py:132-225), with DeviceSketchTable's
     interface.  Shard d holds, on its device, its owner_edges(k, n) range
-    of every row, as an (rows, S_d) matrix.  S_d is the widest of the
-    first sketches' parts in d's range: the greedy loop's later rows are
-    subsets of its first ones, so that is enough, and a row whose part
-    overflows a shard raises.  Pair weights never move a sketch."""
+    of every row, as an (rows, S_d) matrix; over a process group each
+    rank holds its own shards' matrices.  S_d is the widest of the first
+    sketches' parts in d's range: the greedy loop's later rows are subsets
+    of its first ones, so that is enough, and a row whose part overflows a
+    shard raises.  Every rank computes every S_d from the same host
+    sketches, so the widths agree without an exchange.  Pair weights never
+    move a sketch."""
 
     def __init__(self, sketches: Sequence[np.ndarray], k: int, mesh):
         from ..parallel.mesh import owner_edges
@@ -139,19 +142,20 @@ class MeshSketchTable:
         self.mesh = mesh
         self._inner = owner_edges(k, mesh.size)[1:-1]
         self.n = len(sketches)
+        self._cap = max(1, self.n)
         parts = [self._split(s) for s in sketches]
         self.widths = [max(1, max((p[d].shape[0] for p in parts), default=1))
                        for d in range(mesh.size)]
         self._sk = []
-        for d, dev in enumerate(mesh.devices):
-            mat = np.full((max(1, self.n), self.widths[d]), SENTINEL, dtype=np.int64)
+        for d, dev in zip(mesh.local, mesh.devices):
+            mat = np.full((self._cap, self.widths[d]), SENTINEL, dtype=np.int64)
             for i, p in enumerate(parts):
                 mat[i, : p[d].shape[0]] = p[d]
             self._sk.append(torch.from_numpy(mat).to(dev))
 
     @property
     def rows(self) -> List[torch.Tensor]:
-        """Each shard's live (n, S_d) rows, on its device."""
+        """Each local shard's live (n, S_d) rows, on its device."""
         return [sk[: self.n] for sk in self._sk]
 
     def _split(self, sketch: np.ndarray) -> List[np.ndarray]:
@@ -159,16 +163,19 @@ class MeshSketchTable:
         return np.split(sketch, np.searchsorted(sketch, self._inner))
 
     def _rows_of(self, sketch: np.ndarray) -> List[torch.Tensor]:
-        """A sketch as one padded row per shard, on the shard's device."""
-        out = []
-        for d, part in enumerate(self._split(sketch)):
+        """A sketch as one padded row per local shard, on the shard's
+        device; a part that overflows any shard raises on every rank."""
+        parts = self._split(sketch)
+        for d, part in enumerate(parts):
             if part.shape[0] > self.widths[d]:
                 raise ValueError(
                     f"sketch part of size {part.shape[0]} in shard {d}'s range "
                     f"exceeds its capacity {self.widths[d]}")
+        out = []
+        for d, dev in zip(self.mesh.local, self.mesh.devices):
             row = np.full(self.widths[d], SENTINEL, dtype=np.int64)
-            row[: part.shape[0]] = part
-            out.append(torch.from_numpy(row).to(self.mesh.devices[d]))
+            row[: parts[d].shape[0]] = parts[d]
+            out.append(torch.from_numpy(row).to(dev))
         return out
 
     def set_row(self, i: int, sketch: np.ndarray) -> None:
@@ -181,7 +188,8 @@ class MeshSketchTable:
         """Appends a row and returns its index; every shard's row capacity
         doubles when it is full, as DeviceSketchTable's."""
         rows = self._rows_of(sketch)
-        if self.n == self._sk[0].shape[0]:
+        if self.n == self._cap:
+            self._cap *= 2
             self._sk = [torch.cat([sk, torch.full_like(sk, SENTINEL)]) for sk in self._sk]
         for sk, row in zip(self._sk, rows):
             sk[self.n] = row
@@ -189,14 +197,18 @@ class MeshSketchTable:
         return self.n - 1
 
     def batch_pairs(self) -> int:
-        """Pairs per batch: each physical device's memory budget is shared
-        by the shards it holds (at _BYTES_PER_PAIR_SLOT per key slot of
-        their widths), as driver.shard_query_chunk shares it."""
+        """Pairs per batch: each physical device's share of memory
+        (Mesh.budget) is shared by the shards it holds (at
+        _BYTES_PER_PAIR_SLOT per key slot of their widths), as
+        driver.shard_query_chunk shares it; the least over the ranks, since
+        it fixes the number of batches."""
         per_pair: dict = {}
-        for d in range(self.mesh.size):
+        for d in self.mesh.local:
             dev = self.mesh.physical_of(d)
             per_pair[dev] = per_pair.get(dev, 0) + _BYTES_PER_PAIR_SLOT * self.widths[d]
-        return max(1, min(backend.memory_budget(dev) // b for dev, b in per_pair.items()))
+        return max(1, self.mesh.agree_min(min(
+            (self.mesh.budget(dev) // b for dev, b in per_pair.items()),
+            default=1 << 62)))
 
     def pair_weights(self, pairs: List[Tuple[int, int]]) -> np.ndarray:
         """(len(pairs),) int64 intersection sizes of the (i, j) row pairs:
@@ -211,7 +223,7 @@ class MeshSketchTable:
         if idx.min() < 0 or idx.max() >= self.n:
             raise IndexError(f"a pair names a row outside 0..{self.n - 1}")
         with driver._step("sketch weights", self.mesh):
-            idx = torch.from_numpy(idx).to(self.mesh.devices[0])
+            idx = torch.from_numpy(idx).to(self.mesh.home)
             batch = self.batch_pairs()
             blocks = self.rows
             out = [sharded_sketch_weights(self.mesh, blocks, idx[s : s + batch])

@@ -1,4 +1,5 @@
-"""The mesh's host-layout entry points and its routing gates.
+"""The mesh's host-layout entry points, its routing gates and the
+multi-process bring-up.
 
 Counterpart of kmerset_tpu/parallel/driver.py's build half: _pad_stride
 and the shard layout (:51-60, :140-146), _led_chain_selection (:62-71),
@@ -6,9 +7,22 @@ the gates (_mesh_available, should_use_mesh, should_use_mesh_graph,
 :73-137) and the drivers mesh_count (:160-254), mesh_unitig_succ
 (:257-345), mesh_pointer_double (:398-446), mesh_chain_group and
 mesh_emit_chains (:479-667), mesh_matching (:670-710) and
-mesh_overlap_edges (:713-792).  Each takes and returns the host arrays of
-the single-device path it stands in for, and runs the shard programs of
+mesh_overlap_edges (:713-792); and the multi-process staging
+_stride_global and _gather_global (:348-395) and maybe_init_distributed
+(:449-477).  Each driver takes and returns the host arrays of the
+single-device path it stands in for, and runs the shard programs of
 parallel/mesh.py under Mesh.lock.
+
+Over a process group every rank holds the same host input (the
+reference's convention: every process reads the same file), stages only
+its own shards' blocks from it (_stride, _key_blocks), and ends each
+driver call holding the whole host result (Mesh.gather: the lengths,
+then the parts), so the host walk, the path cover and the dump run alike
+on every rank.  A plan that reads local state and fixes how many
+collectives follow (the count's rounds, the side tables' query rounds,
+the sketch table's pair batches) is agreed across the ranks (the least
+of theirs, Mesh.agree_min), and each step checks that every rank is at
+the same step (Mesh.check_step): a mismatch would deadlock.
 
 Not carried over, and why:
 - the capacity retries (driver.py:213-236, :299-322, :610-638, :744-767)
@@ -22,18 +36,24 @@ Not carried over, and why:
   (core/spss.py), as does a grouping whose groups are not led by the
   requested starts;
 - the slow-link gate (driver.py:107-113, :135-137): it belongs with the
-  link formats (ROADMAP A.9);
-- the multi-process staging (_stride_global, _gather_global, :348-395)
-  and maybe_init_distributed (:449-477): the mesh is one process here.
+  link formats (ROADMAP A.9).
+
+maybe_init_distributed reads the reference's KMERSET_TPU_DISTRIBUTED,
+the one variable of the reference's that the port reads: it is the CLI's
+contract for joining a group of processes (addr:port,N,i, or auto for
+PyTorch's env:// variables as torchrun sets them), not a backend switch.
 """
 
 from __future__ import annotations
 
 import contextlib
+import datetime
+import json
 import logging
 import math
+import os
 import time
-from typing import Optional
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
@@ -42,6 +62,7 @@ from ..core.graph import led_group_selection, permute_groups
 from ..ops import backend
 from .mesh import (
     Mesh,
+    device_identity,
     owner_edges,
     oriented_values,
     render_chains,
@@ -52,6 +73,7 @@ from .mesh import (
     sharded_pointer_double,
     sharded_side_tables,
     sharded_unitig_succ,
+    transport_of,
 )
 
 # The reference's size gates of an automatic mesh: counting from
@@ -81,6 +103,14 @@ MAX_MESH_OVERLAP_K = 30
 MESH_FRONT_END_BYTES_PER_KMER = 144
 MESH_BYTES_PER_QUERY = 520
 
+# The variable of the CLI contract for a group of processes (reference
+# driver.py:449-477), and how long a rank waits for the others at the
+# rendezvous and in a collective before it fails.
+DISTRIBUTED_ENV = "KMERSET_TPU_DISTRIBUTED"
+GROUP_TIMEOUT_S = 600
+# A plan's value on a rank without shards: no constraint.
+_UNBOUNDED = 1 << 62
+
 logger = logging.getLogger("kmerset")
 
 
@@ -88,8 +118,10 @@ logger = logging.getLogger("kmerset")
 def _step(name: str, mesh: Mesh):
     """One mesh step under Mesh.lock, timed from when it holds the lock: a
     debug line "mesh: NAME on N shards: S s" (its results are on the host
-    when it ends)."""
+    when it ends).  Over a group it first checks that every rank starts
+    the same step (Mesh.check_step)."""
     with mesh.lock():
+        mesh.check_step(name)
         t0 = time.perf_counter()
         yield
     logger.debug("mesh: %s on %d shards: %.4f s", name, mesh.size,
@@ -127,13 +159,15 @@ def should_use_mesh_graph(mesh: Optional[Mesh], n_nodes: int) -> bool:
 
 
 def _stride(mesh: Mesh, arr: np.ndarray, fill, dtype=torch.int64):
-    """arr split into mesh.size stride blocks of cap = ceil(n / size)
-    entries, the tail padded with `fill`, each on its shard (reference
-    _pad_stride, driver.py:51-59).  Returns (blocks, cap)."""
+    """The local shards' blocks of arr split into mesh.size stride blocks
+    of cap = ceil(n / size) entries, the tail padded with `fill`, each on
+    its shard (reference _pad_stride, driver.py:51-59, and, over a group,
+    _stride_global, :348-378: each rank takes its shards' blocks from
+    the host copy every rank holds).  Returns (blocks, cap)."""
     n = arr.shape[0]
     cap = max(1, math.ceil(n / mesh.size))
     out = []
-    for d, dev in enumerate(mesh.devices):
+    for d, dev in zip(mesh.local, mesh.devices):
         part = torch.full((cap,), fill, dtype=dtype)
         lo, hi = min(d * cap, n), min((d + 1) * cap, n)
         part[: hi - lo] = torch.from_numpy(np.ascontiguousarray(arr[lo:hi])).to(dtype)
@@ -141,20 +175,22 @@ def _stride(mesh: Mesh, arr: np.ndarray, fill, dtype=torch.int64):
     return out, cap
 
 
-def _gather(parts, n: int, dtype) -> np.ndarray:
-    """The first n entries of the shards' concatenated blocks, on the
-    host."""
-    return np.concatenate([p.cpu().numpy() for p in parts])[:n].astype(dtype)
+def _gather(mesh: Mesh, parts, n: int, dtype, wire=torch.int64) -> np.ndarray:
+    """The first n entries of every shard's concatenated blocks (parts:
+    the local shards'), on the host of every rank (reference
+    _gather_global, driver.py:381-395), through Mesh.gather as `wire`."""
+    return mesh.gather([p.to(wire) for p in parts], wire)[:n].astype(dtype)
 
 
 def shard_window_ceiling(mesh: Mesh, k: int) -> int:
     """The most windows one shard packs in one mesh count: each physical
-    device's one-shot ceiling (backend.window_ceiling of its
-    memory_budget), shared by the shards it holds; at least 1."""
-    return max(1, min(
-        backend.window_ceiling(k, backend.memory_budget(dev)) // n
-        for dev, n in mesh.physical().items()
-    ))
+    device's one-shot ceiling (backend.window_ceiling of this rank's
+    share of its memory_budget, Mesh.budget), shared by the shards it
+    holds; the least over the ranks, since it fixes the count's rounds;
+    at least 1."""
+    return max(1, mesh.agree_min(min(
+        (backend.window_ceiling(k, mesh.budget(dev)) // n
+         for dev, n in mesh.physical().items()), default=_UNBOUNDED)))
 
 
 def mesh_count(codes: np.ndarray, offsets: np.ndarray, k: int,
@@ -188,49 +224,55 @@ def _mesh_count_round(codes, offsets, k: int, canonical: bool, mesh: Mesh,
     chunks = list(backend.chunk_slices(codes, offsets, k, W))
     with _step("count" if need_counts else "decode", mesh):
         staged = [backend.stage(*chunks[d], k, dev) if d < len(chunks) else None
-                  for d, dev in enumerate(mesh.devices)]
+                  for d, dev in zip(mesh.local, mesh.devices)]
         out = sharded_count(mesh, staged, k, canonical, need_counts)
-        keys = np.concatenate([kk.cpu().numpy().astype(np.int64) for kk, _ in out])
+        keys = _gather(mesh, [kk for kk, _ in out], None, np.int64)
         if not need_counts:
             return keys, None
-        counts = np.concatenate([c.cpu().numpy().astype(np.int64) for _, c in out])
+        counts = _gather(mesh, [c for _, c in out], None, np.int64, torch.int32)
     return keys, counts
 
 
 def shard_query_chunk(mesh: Mesh, sizes) -> int:
     """The most k-mers each shard queries in one side-table round, planned
     per physical device as backend.front_end_plan plans one device: the
-    whole-set arrays of the k-mers its shards hold (sizes[d]: shard d's,
-    at MESH_FRONT_END_BYTES_PER_KMER) take at most half its
-    memory_budget, and what they leave, at MESH_BYTES_PER_QUERY per
-    queried k-mer, is shared by its shards.  Raises where they would take
-    more: the mesh has no bounded mode, so such a set takes more
-    devices."""
+    whole-set arrays of the k-mers its shards hold (sizes[i]: local shard
+    i's, at MESH_FRONT_END_BYTES_PER_KMER) take at most half its share of
+    memory (Mesh.budget), and what they leave, at MESH_BYTES_PER_QUERY
+    per queried k-mer, is shared by its shards; the least over the ranks,
+    since it fixes the rounds.  Raises, on every rank, where they would
+    take more on any rank: the mesh has no bounded mode, so such a set
+    takes more devices."""
     held: dict = {}
-    for d, size in enumerate(sizes):
+    for d, size in zip(mesh.local, sizes):
         dev = mesh.physical_of(d)
         held[dev] = held.get(dev, 0) + int(size)
-    chunk = None
+    chunk, over = _UNBOUNDED, None
     for dev, n_dev in held.items():
-        budget = backend.memory_budget(dev)
+        budget = mesh.budget(dev)
         whole = MESH_FRONT_END_BYTES_PER_KMER * n_dev
         if 2 * whole > budget:
-            raise ValueError(
-                f"the mesh front-end's {n_dev} k-mers on {dev} exceed its "
-                f"one-shot ceiling ({budget // (2 * MESH_FRONT_END_BYTES_PER_KMER)}"
-                "); spread the set over more devices")
+            over = (f"the mesh front-end's {n_dev} k-mers on {dev} exceed its "
+                    f"one-shot ceiling ({budget // (2 * MESH_FRONT_END_BYTES_PER_KMER)}"
+                    "); spread the set over more devices")
+            chunk = 0
+            continue
         q = max(1, (budget - whole) // MESH_BYTES_PER_QUERY // mesh.physical()[dev])
-        chunk = q if chunk is None else min(chunk, q)
-    return chunk
+        chunk = min(chunk, q)
+    agreed = mesh.agree_min(chunk)
+    if agreed == 0:
+        raise ValueError(over or "the mesh front-end's k-mers exceed its "
+                         "one-shot ceiling on another rank's device")
+    return agreed
 
 
 def _key_blocks(mesh: Mesh, A: np.ndarray, k: int):
-    """The sorted set A as key-range blocks on the shards, and each
-    block's position in A."""
+    """The local shards' key-range blocks of the sorted set A, on their
+    devices, and each block's position in A."""
     idx = np.searchsorted(A, owner_edges(k, mesh.size))
     blocks = [torch.from_numpy(np.ascontiguousarray(A[idx[d]:idx[d + 1]], dtype=np.int64)).to(dev)
-              for d, dev in enumerate(mesh.devices)]
-    return blocks, [int(i) for i in idx[:-1]]
+              for d, dev in zip(mesh.local, mesh.devices)]
+    return blocks, [int(idx[d]) for d in mesh.local]
 
 
 def mesh_side_tables(A: np.ndarray, k: int, canonical: bool, mesh: Mesh):
@@ -245,8 +287,10 @@ def mesh_side_tables(A: np.ndarray, k: int, canonical: bool, mesh: Mesh):
         out = []
         for side in range(2):
             out.append(tuple(
-                np.concatenate([r[side][j].cpu().numpy() for r in rows]).astype(dt)
-                for j, dt in enumerate((np.int64, np.int64, bool))))
+                _gather(mesh, [r[side][j] for r in rows], None, dt, wire)
+                for j, (dt, wire) in enumerate((
+                    (np.int64, torch.int32), (np.int64, torch.int64),
+                    (bool, torch.bool)))))
     return out[0], out[1]
 
 
@@ -259,7 +303,10 @@ def mesh_unitig_succ(A: np.ndarray, k: int, mesh: Mesh):
         blocks, offs = _key_blocks(mesh, A, k)
         q = shard_query_chunk(mesh, [b.shape[0] for b in blocks])
         rows = sharded_unitig_succ(mesh, blocks, offs, k, q)
-        cat = [np.concatenate([r[j].cpu().numpy() for r in rows]) for j in range(4)]
+        cat = [_gather(mesh, [r[j] for r in rows], None, dt, wire)
+               for j, (dt, wire) in enumerate((
+                   (np.int64, torch.int64), (np.int64, torch.int64),
+                   (bool, torch.bool), (bool, torch.bool)))]
     succ = np.empty(2 * n, dtype=np.int64)
     succ[0::2], succ[1::2] = cat[0], cat[1]
     term_l, term_r = cat[2].astype(bool), cat[3].astype(bool)
@@ -284,10 +331,11 @@ def mesh_pointer_double(succ: np.ndarray, labels: Optional[np.ndarray] = None,
         N = cap * mesh.size
         rounds = max(1, int(np.ceil(np.log2(max(N, 2)))) + 1)
         res = sharded_pointer_double(mesh, sp, lp, cap, rounds)
-        end = _gather([r[0] for r in res], n, np.int64)
-        dist = _gather([r[1] for r in res], n, np.int64)
-        is_chain = _gather([r[2] for r in res], n, bool)
-        mins = _gather([r[3] for r in res], n, np.int64) if labels is not None else None
+        end = _gather(mesh, [r[0] for r in res], n, np.int64)
+        dist = _gather(mesh, [r[1] for r in res], n, np.int64, torch.int32)
+        is_chain = _gather(mesh, [r[2] for r in res], n, bool, torch.bool)
+        mins = (_gather(mesh, [r[3] for r in res], n, np.int64)
+                if labels is not None else None)
     return end, dist, is_chain, mins
 
 
@@ -336,8 +384,8 @@ def mesh_chain_group(succ: np.ndarray, starts: np.ndarray, *, mesh: Mesh,
         pd = mesh_pointer_double(succ, mesh=mesh)
     with _step("chain grouping", mesh):
         grouped = _grouped(mesh, succ, starts, pd)
-        ends = np.concatenate([g[0].cpu().numpy() for g in grouped])
-        nodes = np.concatenate([g[1].cpu().numpy() for g in grouped])
+        ends = _gather(mesh, [g[0] for g in grouped], None, np.int64)
+        nodes = _gather(mesh, [g[1] for g in grouped], None, np.int64)
     groups = _groups_of(ends)
     if not by_starts or nodes.size == 0:
         return nodes, groups
@@ -366,7 +414,7 @@ def mesh_emit_chains(A: np.ndarray, k: int, succ: np.ndarray,
 
     def values(ep, cap):
         lanes = []
-        for d, dev in enumerate(mesh.devices):
+        for d, dev in zip(mesh.local, mesh.devices):
             lo, hi = min(d * cap, n), min((d + 1) * cap, n)
             first = lo >> 1 if oriented else lo
             last = ((hi - 1) >> 1) + 1 if oriented and hi > lo else hi
@@ -377,10 +425,10 @@ def mesh_emit_chains(A: np.ndarray, k: int, succ: np.ndarray,
 
     with _step("chain grouping and emission", mesh):
         grouped = _grouped(mesh, succ, starts, pd, values)
-        ends = np.concatenate([g[0].cpu().numpy() for g in grouped])
-        nodes = np.concatenate([g[1].cpu().numpy() for g in grouped])
-        codes = np.concatenate(
-            [render_chains(g[0], g[2], k).cpu().numpy() for g in grouped])
+        ends = _gather(mesh, [g[0] for g in grouped], None, np.int64)
+        nodes = _gather(mesh, [g[1] for g in grouped], None, np.int64)
+        codes = _gather(mesh, [render_chains(g[0], g[2], k) for g in grouped],
+                        None, np.uint8, torch.uint8)
     groups = _groups_of(ends)
     str_offsets = np.zeros(groups.shape[0], dtype=np.int64)
     np.cumsum(np.diff(groups) + k - 1, out=str_offsets[1:])
@@ -405,7 +453,7 @@ def mesh_matching(pa: np.ndarray, pb: np.ndarray, n_ports: int, *, mesh: Mesh):
         pbp, _ = _stride(mesh, pb, -1)
         pcap = max(1, math.ceil(n_ports / mesh.size))
         match = sharded_matching(mesh, pap, pbp, ecap, pcap)
-        return _gather(match, n_ports, np.int64)
+        return _gather(mesh, match, n_ports, np.int64)
 
 
 def mesh_overlap_edges(P: np.ndarray, S: np.ndarray, k: int, *, mesh: Mesh):
@@ -422,12 +470,14 @@ def mesh_overlap_edges(P: np.ndarray, S: np.ndarray, k: int, *, mesh: Mesh):
     with _step("overlap edges", mesh):
         ucap = max(1, math.ceil(n / mesh.size))
         Ps, Ss = [], []
-        for d, dev in enumerate(mesh.devices):
+        for d, dev in zip(mesh.local, mesh.devices):
             lo, hi = min(d * ucap, n), min((d + 1) * ucap, n)
             Ps.append(torch.from_numpy(np.ascontiguousarray(P[lo:hi], dtype=np.int64)).to(dev))
             Ss.append(torch.from_numpy(np.ascontiguousarray(S[lo:hi], dtype=np.int64)).to(dev))
         ans = sharded_overlap_edges(mesh, Ps, Ss, k, ucap)
-        ans16 = np.concatenate([a.cpu().numpy() for a in ans], axis=1)
+        # Each shard's (16, m_d) answers travel unitig-major.
+        ans16 = _gather(mesh, [a.t().reshape(-1) for a in ans], None,
+                        np.int64).reshape(n, 16).T
     found = ans16 >= 0
     ar = np.arange(n, dtype=np.int64)
     a_out, b_out = [], []
@@ -440,3 +490,79 @@ def mesh_overlap_edges(P: np.ndarray, S: np.ndarray, k: int, *, mesh: Mesh):
         a_out.append(src[ok])
         b_out.append(dst[ok])
     return np.concatenate(a_out), np.concatenate(b_out)
+
+
+def _spec_error(spec: str) -> ValueError:
+    return ValueError(
+        "malformed KMERSET_TPU_DISTRIBUTED=%r: expected "
+        "'auto' or 'addr:port,num_processes,process_id'" % spec)
+
+
+def maybe_init_distributed(devices: Sequence[torch.device]) -> bool:
+    """Joins this process into a torch.distributed group as
+    KMERSET_TPU_DISTRIBUTED says (reference driver.py:449-477), for a
+    mesh whose shards on this rank are `devices`; returns whether a group
+    is up (False where the variable is unset or empty: one process).
+
+    KMERSET_TPU_DISTRIBUTED=addr:port,N,i  -> rank i of N; rank 0 serves
+                                             the rendezvous at addr:port
+    KMERSET_TPU_DISTRIBUTED=auto           -> MASTER_ADDR, MASTER_PORT,
+                                             WORLD_SIZE and RANK (env://,
+                                             as torchrun sets them); where
+                                             TORCHELASTIC_USE_AGENT_STORE
+                                             is True, the launcher serves
+                                             the store and rank 0 joins it
+
+    The ranks first exchange their shards' device identities through the
+    rendezvous store, so that the default group gets a cpu:gloo backend,
+    plus cuda:nccl where the mesh's transport rule (mesh.transport_of)
+    allows NCCL.  The group waits GROUP_TIMEOUT_S for a missing rank or a
+    stalled collective, then fails: nothing continues on fewer ranks."""
+    spec = os.environ.get(DISTRIBUTED_ENV, "")
+    if not spec:
+        return False
+    import torch.distributed as dist
+
+    if spec in ("1", "auto"):
+        try:
+            addr, port = os.environ["MASTER_ADDR"], int(os.environ["MASTER_PORT"])
+            world, rank = int(os.environ["WORLD_SIZE"]), int(os.environ["RANK"])
+        except (KeyError, ValueError) as e:
+            raise ValueError(
+                f"KMERSET_TPU_DISTRIBUTED={spec!r} reads MASTER_ADDR, "
+                f"MASTER_PORT, WORLD_SIZE and RANK: {e!r}") from e
+        serve = rank == 0 and os.environ.get("TORCHELASTIC_USE_AGENT_STORE") != "True"
+    else:
+        try:
+            where, n, pid = spec.split(",")
+            addr, port = where.rsplit(":", 1)
+            port, world, rank = int(port), int(n), int(pid)
+        except ValueError as e:
+            raise _spec_error(spec) from e
+        if not 0 <= rank < world:
+            raise _spec_error(spec)
+        serve = rank == 0
+    timeout = datetime.timedelta(seconds=GROUP_TIMEOUT_S)
+    store = dist.TCPStore(addr, port, world, serve, timeout=timeout)
+    store.set(f"kmerset/devices/{rank}",
+              json.dumps([device_identity(torch.device(d)) for d in devices]))
+    every = [json.loads(store.get(f"kmerset/devices/{r}")) for r in range(world)]
+    backend_name = "cpu:gloo,cuda:nccl" if transport_of(every) == "nccl" else "gloo"
+    dist.init_process_group(backend_name, store=store, rank=rank,
+                            world_size=world, timeout=timeout)
+    logger.info("torch.distributed: process %d / %d (%s)", rank, world,
+                backend_name)
+    return True
+
+
+def end_distributed() -> None:
+    """The last step of a CLI run over a group: every rank agrees that it
+    finished (a rank that failed never gets here, so the others fail in
+    this collective instead of exiting 0), then the group closes.  A
+    no-op in one process."""
+    import torch.distributed as dist
+
+    if not dist.is_available() or not dist.is_initialized():
+        return
+    dist.all_reduce(torch.ones(1, dtype=torch.int64))
+    dist.destroy_process_group()

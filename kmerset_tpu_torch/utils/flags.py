@@ -22,7 +22,7 @@ import torch
 from .. import resolve_device
 from ..core import native
 from ..core.config import CLI_SUPPORTED_K
-from ..parallel.driver import auto_mesh
+from ..parallel.driver import auto_mesh, maybe_init_distributed
 from ..parallel.mesh import Mesh
 
 TRACE_FILE = "trace.json"
@@ -129,7 +129,8 @@ def check_k(k: int) -> None:
         raise SystemExit(1)
 
 
-def devices_or_exit(args, logger) -> Tuple[torch.device, Optional[Mesh]]:
+def devices_or_exit(args, logger, distributed: bool = False
+                    ) -> Tuple[torch.device, Optional[Mesh]]:
     """(device, mesh) of --device.  A comma-separated list of more than one
     entry is a mesh of those shards, routed to whatever the input's size
     (the port's counterpart of the reference's forced mesh of a chosen
@@ -139,13 +140,24 @@ def devices_or_exit(args, logger) -> Tuple[torch.device, Optional[Mesh]]:
     reference's size gates (parallel/driver.auto_mesh).  Exits 1 on an
     entry that is not there, with the message a single such device gets
     (never a quiet CPU run in place of CUDA).  Every k of check_k is
-    ported."""
+    ported.
+
+    distributed (the CLIs that join a group in the reference,
+    kmerset-build and kmerset-multiple-compress): where
+    KMERSET_TPU_DISTRIBUTED brings a process group up
+    (parallel/driver.maybe_init_distributed), --device names this rank's
+    shards, and the mesh spans the group, forced; one entry is then a
+    mesh of one local shard, never the single-device path."""
     names = [x.strip() for x in str(args.device).split(",")]
     try:
         devs = [resolve_device(x) for x in names]
     except (RuntimeError, ValueError) as e:
         logger.error("%s", e)
         sys.exit(1)
+    if distributed and maybe_init_distributed(devs):
+        import torch.distributed as dist
+
+        return devs[0], Mesh(devs, group=dist.group.WORLD)
     if len(devs) > 1:
         return devs[0], Mesh(devs)
     return devs[0], auto_mesh(devs[0])

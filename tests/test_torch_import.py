@@ -59,6 +59,17 @@ kmerset_build.main(["--device", "cpu,cpu", "--k", "15", "--check", "--out",
                     mesh_out, fa])
 with open(mesh_out, "rb") as f, open(sets[-1], "rb") as g:
     assert f.read() == g.read()
+# The same build as a group of one process (KMERSET_TPU_DISTRIBUTED, a
+# torch.distributed group on gloo; port 0: the store takes a port the
+# system picks): the same dump.
+os.environ["KMERSET_TPU_DISTRIBUTED"] = "127.0.0.1:0,1,0"
+group_out = os.path.join(work, "group.txt")
+kmerset_build.main(["--device", "cpu,cpu", "--k", "15", "--out", group_out, fa])
+del os.environ["KMERSET_TPU_DISTRIBUTED"]
+import torch.distributed as dist
+assert not dist.is_initialized()
+with open(group_out, "rb") as f, open(sets[-1], "rb") as g:
+    assert f.read() == g.read()
 d = os.path.join(work, "M")
 kmerset_multiple_compress.main(["--device", "cpu", "--k", "15", "--out", d, *sets])
 # The same compression on a mesh of two CPU shards (its sharded sketch
@@ -88,7 +99,8 @@ print(len(names))
 def test_port_imports_and_counts_without_jax(tmp_path):
     """With jax and kmerset_tpu blocked: every module imports, parallel/
     included, and the build and compress (each on one device and on a
-    mesh of two CPU shards), decompress and stat CLIs run on the CPU."""
+    mesh of two CPU shards; the build also as a process group of one),
+    decompress and stat CLIs run on the CPU."""
     env = dict(os.environ)
     env.pop("KMERSET_TPU_FORCE_BACKEND", None)
     proc = subprocess.run(
@@ -101,15 +113,17 @@ def test_port_imports_and_counts_without_jax(tmp_path):
 
 
 def _port_sources():
-    paths = [os.path.join(ROOT, "chip_smoke.py")]
+    paths = [os.path.join(ROOT, "chip_smoke.py"),
+             os.path.join(ROOT, "tests", "torch_distributed_child.py")]
     for d, _, files in os.walk(os.path.dirname(kmerset_tpu_torch.__file__)):
         paths += [os.path.join(d, f) for f in files if f.endswith(".py")]
     return paths
 
 
 def test_no_jax_package_import_in_port_sources():
-    """No module of the port, and not chip_smoke.py, imports kmerset_tpu:
-    the port keeps its own copy of the host code it needs."""
+    """No module of the port, not chip_smoke.py and not the process-group
+    tests' child, imports kmerset_tpu: the port keeps its own copy of the
+    host code it needs."""
     pat = re.compile(r"^\s*(import|from) kmerset_tpu(\.|\s|$)", re.M)
     for path in _port_sources():
         with open(path) as f:
