@@ -75,8 +75,18 @@ and its wall and mesh steps print beside the single-process 3-shard mesh
 and the single device (for run M also the single-process mesh with
 --workers 1: the item order a group imposes).  It also runs run C in a group of one rank on
 `cuda:0,cuda:0`, whose exchanges go over NCCL on the card, and over one
-rank per card (NCCL) where there are several cards.  Inputs are made
-from fixed seeds under build/chip_smoke/.
+rank per card (NCCL) where there are several cards.  Phase 20 drives the
+library surface on the card: the unpacked-code count entries
+(ops/count.count_kmers, count_to_set at cutoffs 1 and 2) on run A's
+genome at k = 15, 23 and 31, against backend.device_count and against
+their plain versions on the card, each timed by CUDA events; and
+KmerSet's queries and algebra on run A's set and a set from the seed,
+with intersection_size and ops/join.intersection_count, a KmerCounter of
+run D's reads with 10^4 adds, get_random_kmer_set_set dumped, and
+utils/io.get_kmer_set_from_file of run A's dump, each against the
+reference's same calls in a subprocess (byte-identical directory, equal
+arrays, sizes and hashes).  Inputs are made from fixed seeds under
+build/chip_smoke/.
 
 Each phase prints one line.  The line before the last is a JSON summary of
 the kernels; the last line is {"ok": true, "device": {...}}.  Any failure
@@ -186,7 +196,8 @@ def environment(torch) -> str:
         ["gcc", "--version"], capture_output=True, text=True, timeout=60
     ).stdout.strip().splitlines()
     say(0, f"python {sys.version.split()[0]}, torch {torch.__version__}, "
-           f"CUDA {torch.version.cuda}, device {torch.cuda.get_device_name(0)}")
+           f"numpy {np.__version__}, CUDA {torch.version.cuda}, device "
+           f"{torch.cuda.get_device_name(0)}")
     print(smi, flush=True)
     say(0, f"nvcc: {[l for l in nvcc if 'release' in l][-1]}; "
            f"gcc: {gcc[0] if gcc else 'not found'}")
@@ -627,13 +638,16 @@ class RefCli:
     cwd = ROOT
 
     def __init__(self, tag: str, cli: str, args):
+        self._start(tag, ["-m", f"kmerset_tpu.cli.{cli}", *args])
+
+    def _start(self, tag: str, argv) -> None:
         self.out_log = open(os.path.join(WORK, f"{tag}_ref.out"), "w+")
         self.err = open(os.path.join(WORK, f"{tag}_ref.log"), "w+")
         env = dict(os.environ, KMERSET_TPU_FORCE_BACKEND="host",
                    JAX_PLATFORMS="cpu")
         self.t0 = time.perf_counter()
         self.proc = subprocess.Popen(
-            [sys.executable, "-m", f"kmerset_tpu.cli.{cli}", *args],
+            [sys.executable, *argv],
             stdout=self.out_log, stderr=self.err, env=env, cwd=self.cwd,
         )
 
@@ -1707,6 +1721,286 @@ def run_m_mesh(torch, tag: str, k: int, m: dict, devices: str) -> dict:
     return {"launches": launches, "compress_s": comp_s, "steps": steps}
 
 
+# Phase 20's reference side: the same library calls through the
+# reference's API (pinned to its host arms) on the .npy inputs the phase
+# writes, in a subprocess beside the port's calls.  argv: WORK, the run D
+# reads, run A's dump, the generators' seed and set size.  Its array
+# results go to WORK/lib_ref_*.npy, its scalars and times to the last line.
+_LIBRARY_REF = (
+    "import json, os, sys, time\n"
+    "import numpy as np\n"
+    "from kmerset_tpu.core.kmer_counter import KmerCounter\n"
+    "from kmerset_tpu.core.kmer_set import KmerSet, intersection_size\n"
+    "from kmerset_tpu.utils.io import get_kmer_set_from_file\n"
+    "from kmerset_tpu.utils.random import get_random_kmer_set_set\n"
+    "work, reads, dump, seed, m = sys.argv[1:6]\n"
+    "ld = lambda n: np.load(os.path.join(work, f'lib_{n}.npy'))\n"
+    "sv = lambda n, a: np.save(os.path.join(work, f'lib_ref_{n}.npy'), a)\n"
+    "secs, out = {}, {}\n"
+    "def timed(name, fn):\n"
+    "    t0 = time.perf_counter(); r = fn()\n"
+    "    secs[name] = time.perf_counter() - t0; return r\n"
+    "S, T = ld('S'), ld('T')\n"
+    "s, t = KmerSet(15, S, _sorted=True), KmerSet(15, T, _sorted=True)\n"
+    "sv('contains', timed('contains', lambda: s.contains(T)))\n"
+    "sv('union', timed('union', lambda: s.union(t)).kmers)\n"
+    "sv('subtract', timed('subtract', lambda: s.subtract(t)).kmers)\n"
+    "sv('intersection', timed('intersection', lambda: s.intersection(t)).kmers)\n"
+    "out['diff_count'] = timed('diff_count', lambda: s.diff_count(t))\n"
+    "out['intersection_size'] = timed('intersection_size',\n"
+    "                                 lambda: intersection_size(S, T))\n"
+    "out['hash'] = timed('hash', lambda: [s.hash(), t.hash()])\n"
+    "c = timed('counter from_fasta', lambda: KmerCounter.from_fasta(\n"
+    "    19, reads, '', True))\n"
+    "adds = ld('adds')\n"
+    "timed('adds', lambda: [c.add(int(x), int(v)) for x, v in adds])\n"
+    "out['get'] = timed('get', lambda: [c.get(int(x)) for x in ld('probes')])\n"
+    "out['size'] = c.size()\n"
+    "ks, out['n_cut'] = timed('to_kmer_set', lambda: c.to_kmer_set(2))\n"
+    "sv('counter_kmers', c.kmers); sv('counter_counts', c.counts)\n"
+    "sv('counter_set', ks.kmers)\n"
+    "kss = timed('get_random_kmer_set_set', lambda: get_random_kmer_set_set(\n"
+    "    8, int(m), 15, True, np.random.default_rng(int(seed))))\n"
+    "timed('dump', lambda: kss.dump(os.path.join(work, 'lib_sets_ref'), '', 'txt'))\n"
+    "f = timed('get_kmer_set_from_file', lambda: get_kmer_set_from_file(\n"
+    "    15, dump, '', True))\n"
+    "out['file'] = [f.size(), f.hash()]\n"
+    "print(json.dumps({'out': out, 'secs': secs}))\n"
+)
+
+
+class RefScript(RefCli):
+    """A Python program (`code`) run with the reference's environment and
+    working directory, beside the port's calls."""
+
+    def __init__(self, tag: str, code: str, args):
+        self._start(tag, ["-c", code, *args])
+
+
+LIB_SETS_SEED = SEED + 20  # get_random_kmer_set_set's generator
+LIB_SETS_M = 50_000  # k-mers per generated set
+LIB_CUTOFFS = (1, 2)
+
+
+def check_library(torch, rng, fasta_a: str, fasta_d: str, S: np.ndarray,
+                  dump_a: str) -> dict:
+    """Phase 20, the library surface on the card.  The unpacked-code count
+    entries (ops/count.count_kmers, count_to_set at cutoffs 1 and 2) on
+    run A's genome with window_validity's mask at k = 15 (B1), 23 and 31
+    (B2); KmerSet's queries and algebra on run A's set S (k = 15) and a
+    set T from the seed (half of S and as many random k-mers), with
+    intersection_size, the hash and ops/join.intersection_count on the
+    card; a KmerCounter of run D's reads (k = 19) on the card with 10^4
+    adds, get, size and to_kmer_set(2); get_random_kmer_set_set (8 sets,
+    k = 15) on the card, dumped; and utils/io.get_kmer_set_from_file of
+    run A's dump, decoded on the card.  Each library call is driven once
+    with the launch counts at 0, and those counts are returned; then each
+    is held against the reference's same call in a subprocess (RefScript,
+    _LIBRARY_REF), the count entries against backend.device_count and
+    against their plain versions on the card, and each is timed."""
+    from kmerset_tpu_torch.core.kmer_counter import KmerCounter, extract_kmers
+    from kmerset_tpu_torch.core.kmer_set import KmerSet, intersection_size
+    from kmerset_tpu_torch.ops import backend, compact, pack
+    from kmerset_tpu_torch.ops import count as count_ops
+    from kmerset_tpu_torch.ops.join import intersection_count
+    from kmerset_tpu_torch.utils.io import get_kmer_set_from_file
+    from kmerset_tpu_torch.utils.random import get_random_kmer_set_set
+
+    t20 = time.perf_counter()
+    tag = "20 library"
+    k_s = 15
+    # T: half of S and as many random k-mers not in S, built with sorts
+    # (np.unique hashes on some numpy releases, which is far slower here).
+    half = S[rng.random(S.size) < 0.5]
+    new = np.sort(rng.integers(0, 1 << (2 * k_s), half.size))
+    new = new[np.concatenate([[True], new[1:] != new[:-1]])]
+    new = new[S[np.minimum(np.searchsorted(S, new), S.size - 1)] != new]
+    T = np.sort(np.concatenate([half, new]))
+    np.save(os.path.join(WORK, "lib_S.npy"), S)
+    np.save(os.path.join(WORK, "lib_T.npy"), T)
+    # Adds to run D's counter: canonical 19-mers of its first 1000 reads
+    # (counted already) and random ones, a few of them saturating.
+    codes_d, offsets_d = fasta_codes(fasta_d)
+    cut = int(offsets_d[min(1000, offsets_d.size - 1)])
+    seen = rng.choice(extract_kmers(codes_d[:cut], offsets_d[offsets_d <= cut],
+                                    19, True), 5000)
+    adds_k = np.concatenate([seen, rng.integers(0, 1 << 38, 5000)])
+    adds_v = rng.integers(1, 4, adds_k.size)
+    adds_v[:50] = 255
+    adds = np.stack([adds_k, adds_v], axis=1)
+    probes = np.concatenate([adds_k[::10], rng.integers(0, 1 << 38, 100)])
+    np.save(os.path.join(WORK, "lib_adds.npy"), adds)
+    np.save(os.path.join(WORK, "lib_probes.npy"), probes)
+    for d in ("lib_sets_port", "lib_sets_ref"):
+        shutil.rmtree(os.path.join(WORK, d), ignore_errors=True)
+    ref = RefScript("lib", _LIBRARY_REF, [WORK, fasta_d, dump_a,
+                                          str(LIB_SETS_SEED), str(LIB_SETS_M)])
+    try:
+        codes, offsets = fasta_codes(fasta_a)
+        codes_t = torch.from_numpy(codes).to(DEVICE)
+        valid_t = {}
+        for k in (15, 23, 31):
+            v = count_ops.window_validity(offsets, codes.size, k)
+            valid_t[k] = torch.from_numpy(v).to(DEVICE)
+        S_t, T_t = (torch.from_numpy(x).to(DEVICE) for x in (S, T))
+        s_set, t_set = KmerSet(k_s, S, _sorted=True), KmerSet(k_s, T, _sorted=True)
+
+        # The library calls, once each, with the launch counts at 0; the
+        # host set algebra first, beside the reference's.
+        pack.launches = pack.launches_pair = compact.launches = 0
+        got, mine = {}, {}
+
+        def timed(name, fn):
+            t0 = time.perf_counter()
+            r = fn()
+            mine[name] = time.perf_counter() - t0
+            return r
+
+        got["contains"] = timed("contains", lambda: s_set.contains(T))
+        for op in ("union", "subtract", "intersection"):
+            got[op] = timed(op, lambda: getattr(s_set, op)(t_set)).kmers
+        scalars = {
+            "diff_count": timed("diff_count", lambda: s_set.diff_count(t_set)),
+            "intersection_size": timed("intersection_size",
+                                       lambda: intersection_size(S, T)),
+            "hash": timed("hash", lambda: [s_set.hash(), t_set.hash()]),
+        }
+        for k in (15, 23, 31):
+            got[k, "count"] = count_ops.count_kmers(codes_t, valid_t[k], k, True)
+            for c in LIB_CUTOFFS:
+                got[k, c] = count_ops.count_to_set(codes_t, valid_t[k], k, True, c)
+        got["intersection_count"] = int(intersection_count(S_t, T_t))
+        counter = timed("counter from_fasta", lambda: KmerCounter.from_fasta(
+            19, fasta_d, "", True, device=DEVICE))
+        timed("adds", lambda: [counter.add(int(x), int(v)) for x, v in adds])
+        got["get"] = timed("get", lambda: [counter.get(int(x)) for x in probes])
+        got["size"] = counter.size()
+        got["counter set"] = timed("to_kmer_set", lambda: counter.to_kmer_set(2))
+        kss = timed("get_random_kmer_set_set", lambda: get_random_kmer_set_set(
+            8, LIB_SETS_M, 15, True, np.random.default_rng(LIB_SETS_SEED),
+            device=DEVICE))
+        timed("dump", lambda: kss.dump(os.path.join(WORK, "lib_sets_port"),
+                                       "", "txt"))
+        f_set = timed("get_kmer_set_from_file", lambda: get_kmer_set_from_file(
+            15, dump_a, "", True, device=DEVICE))
+        torch.cuda.synchronize()
+        launches = {"B1": pack.launches, "B2": pack.launches_pair,
+                    "B3": compact.launches}
+        for name in ("B1", "B2", "B3"):
+            if launches[name] <= 0:
+                raise AssertionError(f"{tag}: kernel {name} was not launched")
+
+        # The count entries against device_count and the plain versions.
+        timing = []
+        for k in (15, 23, 31):
+            keys, counts, n = got[k, "count"]
+            want_k, want_c = backend.device_count(codes, offsets, k, True,
+                                                  device=DEVICE)
+            _equal(f"count_kmers k={k} keys", keys.cpu().numpy(), want_k)
+            _equal(f"count_kmers k={k} counts", counts.cpu().numpy(), want_c)
+            for c in LIB_CUTOFFS:
+                kept, m, n_cut = got[k, c]
+                keep = want_c >= c
+                _equal(f"count_to_set k={k} cutoff {c}", kept.cpu().numpy(),
+                       want_k[keep])
+                if (m, n_cut) != (int(keep.sum()), int((~keep).sum())):
+                    raise AssertionError(f"count_to_set k={k} cutoff {c}: "
+                                         f"n_kept, n_cut {m}, {n_cut}")
+            kernel_fns = (count_ops.pack_windows, count_ops.compact_select)
+            count_ops.pack_windows = pack.canonical_windows_plain
+            count_ops.compact_select = compact.compact_select_plain
+            try:
+                plain = count_ops.count_kmers(codes_t, valid_t[k], k, True)
+                plain_sets = [count_ops.count_to_set(codes_t, valid_t[k], k,
+                                                     True, c) for c in LIB_CUTOFFS]
+            finally:
+                count_ops.pack_windows, count_ops.compact_select = kernel_fns
+            for a, b in zip(plain[:2], got[k, "count"][:2]):
+                _equal(f"count_kmers k={k} against its plain version",
+                       a.cpu().numpy(), b.cpu().numpy())
+            for c, p in zip(LIB_CUTOFFS, plain_sets):
+                _equal(f"count_to_set k={k} cutoff {c} against its plain "
+                       "version", p[0].cpu().numpy(), got[k, c][0].cpu().numpy())
+            # One call per CUDA-event pair (each call reads its result's
+            # length on the host).
+            ms = [time_ms(lambda: count_ops.count_kmers(
+                codes_t, valid_t[k], k, True), 3, 1)]
+            ms += [time_ms(lambda: count_ops.count_to_set(
+                codes_t, valid_t[k], k, True, c), 3, 1) for c in LIB_CUTOFFS]
+            ms.append(time_ms(lambda: backend.device_count(
+                codes, offsets, k, True, device=DEVICE), 3, 1))
+            timing.append((k, n, ms))
+        for k, n, ms in timing:
+            say(tag, f"k={k} ({'B1' if k <= 15 else 'B2'} + B3), "
+                     f"{codes.size - k + 1} windows, {n} distinct: count_kmers "
+                     f"{ms[0]:.3f} ms, count_to_set cutoff 1 {ms[1]:.3f} ms, "
+                     f"cutoff 2 {ms[2]:.3f} ms (CUDA events, codes and "
+                     f"validity on the card); device_count {ms[3]:.3f} ms "
+                     "(its staging upload and download included); keys and "
+                     "counts equal to device_count's and to the plain "
+                     "versions on the card")
+
+        # The rest against the reference's subprocess.
+        out, err, ref_s = ref.wait_output(900)
+        res = json.loads(out.strip().splitlines()[-1])
+        rout, rsecs = res["out"], res["secs"]
+        ld = lambda n: np.load(os.path.join(WORK, f"lib_ref_{n}.npy"))
+        for name in ("contains", "union", "subtract", "intersection"):
+            _equal(name, got[name], ld(name))
+        for name, v in scalars.items():
+            if v != rout[name]:
+                raise AssertionError(f"{name}: {v} against the reference's "
+                                     f"{rout[name]}")
+        ic_ms = time_ms(lambda: intersection_count(S_t, T_t), 3, 1)
+        if got["intersection_count"] != scalars["intersection_size"]:
+            raise AssertionError("intersection_count on the card: "
+                                 f"{got['intersection_count']}")
+        ks2, n_cut = got["counter set"]
+        _equal("counter kmers", counter.kmers, ld("counter_kmers"))
+        _equal("counter counts", counter.counts, ld("counter_counts"))
+        _equal("counter to_kmer_set(2)", ks2.kmers, ld("counter_set"))
+        if (got["get"], got["size"], n_cut) != (rout["get"], rout["size"],
+                                                rout["n_cut"]):
+            raise AssertionError("counter get/size/n_cut differ from the "
+                                 "reference's")
+        port_dir = os.path.join(WORK, "lib_sets_port")
+        ref_dir = os.path.join(WORK, "lib_sets_ref")
+        names = sorted(os.listdir(port_dir))
+        if names != sorted(os.listdir(ref_dir)):
+            raise AssertionError(f"generated directories hold other files: {names}")
+        _, mismatch, errors = filecmp.cmpfiles(port_dir, ref_dir, names,
+                                               shallow=False)
+        if mismatch or errors:
+            raise AssertionError(f"generated directories differ: {mismatch + errors}")
+        if [f_set.size(), f_set.hash()] != rout["file"]:
+            raise AssertionError(f"get_kmer_set_from_file: {f_set.size()}, "
+                                 f"{f_set.hash()} against {rout['file']}")
+    finally:
+        ref.kill()
+    say(tag, f"set algebra on run A's set S ({S.size} k-mers) and T ({T.size}: "
+             f"{half.size} of S, {new.size} new) equal to the reference's: "
+             f"|S & T| {scalars['intersection_size']}, diff_count "
+             f"{scalars['diff_count']}, hashes {scalars['hash']}; "
+             f"intersection_count on the card {ic_ms:.3f} ms (CUDA events)")
+    say(tag, f"KmerCounter of run D's reads (k = 19, {counter.kmers.size} "
+             f"k-mers after {adds.shape[0]} adds) on {DEVICE}: kmers, counts, "
+             f"get at {probes.size} probes, size and to_kmer_set(2) "
+             f"({ks2.size()} kept, {n_cut} cut) equal to the reference's")
+    say(tag, f"get_random_kmer_set_set (8 x {LIB_SETS_M} k-mers, k = 15, seed "
+             f"{LIB_SETS_SEED}) on {DEVICE}: dump ({len(names)} files) "
+             f"byte-identical to the reference's; get_kmer_set_from_file of "
+             f"run A's dump on {DEVICE}: size {f_set.size()}, hash "
+             f"{f_set.hash()}, the reference's")
+    say(tag, "wall s, port / reference (the set algebra and adds on the host "
+             "on both sides; the port's count, builds and decode on the card, "
+             "the reference's on its host): " + ", ".join(
+                 f"{n} {mine[n]:.4f} / {rsecs[n]:.4f}" for n in mine))
+    say(tag, f"launches of the library calls: {launches}; reference "
+             f"subprocess {ref_s:.1f} s; phase 20 took "
+             f"{time.perf_counter() - t20:.1f} s")
+    return {"launches": launches}
+
+
 def main() -> int:
     try:
         import torch
@@ -1842,6 +2136,9 @@ def main() -> int:
         say("19 group", "one GPU visible: run C over one rank per card (NCCL "
                         "across distinct cards) was not run")
     say("19 group", f"phase 19 took {time.perf_counter() - t19:.1f} s")
+    runs.append(check_library(torch, np.random.default_rng(SEED + 20), fasta_a,
+                              fasta_d, sets["run A"],
+                              os.path.join(WORK, f"{plan[0][0]}_port.txt")))
 
     for kern in kernels:
         name = kern["name"].split()[0]
@@ -1855,7 +2152,8 @@ def main() -> int:
     if ref_mods:
         raise AssertionError(f"the JAX package was imported: {ref_mods}")
     say(8, "launch counts over runs A, C, D, E, F, M and M31, their mesh "
-           "runs and the process-group runs' ranks: " + ", ".join(
+           "runs, the process-group runs' ranks and phase 20's library "
+           "calls: " + ", ".join(
         f"{k['name'].split()[0]} {k['launches']}" for k in kernels)
         + "; neither jax nor kmerset_tpu in sys.modules; "
         f"{time.perf_counter() - t_start:.1f} s")

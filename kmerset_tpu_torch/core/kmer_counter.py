@@ -1,18 +1,21 @@
 """KmerCounter on an explicit torch device: sort-based k-mer counting.
 
 The port's own class, with the reference's base class
-(kmerset_tpu/core/kmer_counter.py:57-343) folded in as far as the port
-reaches it: construction, saturating counts and the cutoff filter of
-to_kmer_set (:315-343).  Its construction sends every non-empty input to
+(kmerset_tpu/core/kmer_counter.py:57-343) folded in: construction,
+saturating counts, the incremental adds (add, _flush, size, get,
+:280-313) and the cutoff filter of to_kmer_set (:315-343), which flushes
+pending adds first; and its copy of extract_kmers (:27-54), the host
+window extraction of the library surface (PackedStrings.all_kmers, the
+test-data generators).  Its construction sends every non-empty input to
 a mesh of shards where one is given and its gate takes the input
 (parallel/driver.mesh_count, the reference's route at :194-200), else to
 the port's device count on the counter's device: in one shot
 (ops/backend.device_count) up to the device's one-shot ceiling
 (backend.window_ceiling), in halo chunks merged on the host
-(backend.device_count_chunked) above it.  There is no host fallback, so
-none of the reference's deferred counts transfer, host recount or
-resident handle (:72-137) is carried over, nor its incremental adds
-(:280-313), which no CLI calls.
+(backend.device_count_chunked) above it.  Left out by design: the
+deferred counts transfer and its host recount (:72-137), because the
+port has no host fallback and its counts are eager, so `counts` is a
+plain attribute; and the resident handle (ROADMAP A.9).
 
 Counts saturate at value_max like the reference's AddWithMax with its
 uint8 default ValueType (reference: lib/core/kmer_counter.h:28-38,48).
@@ -28,10 +31,41 @@ from .. import resolve_device
 from ..ops import backend
 from ..parallel import driver as mesh_driver
 from . import io as core_io
+from . import kmer as kmer_ops
 from . import native
 from .kmer_set import KmerSet
 
 DEFAULT_VALUE_MAX = 255  # uint8 ValueType default (reference: kmer_counter.h:48)
+
+
+def extract_kmers(
+    codes: np.ndarray, offsets: np.ndarray, k: int, canonical: bool
+) -> np.ndarray:
+    """All k-mers from concatenated fragments, canonicalized if asked.
+
+    codes: flat 2-bit codes; offsets: fragment boundaries (windows never
+    cross a fragment boundary, replicating the split-at-'N' behavior,
+    reference: lib/core/kmer_counter.h:78-96).
+    """
+    n_pos = codes.shape[0] - k + 1
+    if n_pos <= 0:
+        return np.empty(0, dtype=np.int64)
+    windows = kmer_ops.kmers_from_codes(codes, k)
+    # Window at p is valid iff it does not straddle a fragment boundary:
+    # every interior boundary b invalidates starts [b-k+1, b).  Marked via
+    # a difference array + cumsum (two tiny scatters instead of two
+    # n_pos-sized binary-search passes).
+    bounds = offsets[1:-1] if offsets.shape[0] > 2 else np.empty(0, np.int64)
+    d = np.zeros(n_pos + 1, dtype=np.int32)
+    lo = np.maximum(bounds - k + 1, 0)
+    hi = np.minimum(bounds, n_pos)
+    np.add.at(d, lo[lo < hi], 1)
+    np.add.at(d, hi[lo < hi], -1)
+    invalid = np.cumsum(d[:-1]) > 0
+    kmers = windows[~invalid]
+    if canonical:
+        kmers = kmer_ops.canonical(kmers, k)
+    return kmers
 
 
 class KmerCounter:
@@ -52,6 +86,7 @@ class KmerCounter:
             np.asarray(counts, dtype=np.int64) if counts is not None else np.empty(0, np.int64)
         )
         self.device = resolve_device(device)
+        self._pending: List[Tuple[int, int]] = []
 
     @classmethod
     def from_fasta(
@@ -122,9 +157,45 @@ class KmerCounter:
             k, uniq, np.minimum(counts, value_max), value_max, device=device
         )
 
+    # -- incremental adds (reference Add, lib/core/kmer_counter.h:257-264) --
+
+    def add(self, kmer: int, v: int = 1) -> "KmerCounter":
+        self._pending.append((int(kmer), int(v)))
+        return self
+
+    def _flush(self) -> None:
+        """Sums the pending adds into the sorted arrays, saturating at
+        value_max."""
+        if not self._pending:
+            return
+        pend = np.array(self._pending, dtype=np.int64)
+        self._pending.clear()
+        all_k = np.concatenate([self.kmers, pend[:, 0]])
+        all_v = np.concatenate([self.counts, pend[:, 1]])
+        order = np.argsort(all_k, kind="stable")
+        all_k, all_v = all_k[order], all_v[order]
+        uniq, start = np.unique(all_k, return_index=True)
+        sums = np.add.reduceat(all_v, start)
+        self.kmers = uniq
+        self.counts = np.minimum(sums, self.value_max)
+
+    # -- queries -----------------------------------------------------------
+
+    def size(self) -> int:
+        self._flush()
+        return int(self.kmers.shape[0])
+
+    def get(self, kmer: int) -> int:
+        self._flush()
+        idx = np.searchsorted(self.kmers, kmer)
+        if idx < self.kmers.shape[0] and self.kmers[idx] == kmer:
+            return int(self.counts[idx])
+        return 0
+
     def to_kmer_set(self, cutoff: int) -> Tuple[KmerSet, int]:
         """Filters out k-mers with count < cutoff; returns (set, n_cut)
         (reference: lib/core/kmer_counter.h:211-243)."""
+        self._flush()
         if cutoff <= 1:
             # Nothing to filter: reuse the sorted array.
             return KmerSet(self.k, self.kmers, _sorted=True), 0

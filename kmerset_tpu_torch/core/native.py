@@ -4,15 +4,19 @@ Falls back silently to the NumPy paths when the shared library has not
 been built (`make -C native`); every caller treats this module as an
 optional accelerator, never a requirement.
 
-The port's copy of kmerset_tpu/core/native.py, with the bindings the
-port reaches: the loader (:17-84), set_threads (:87-100), the FASTA parse
-and 2-bit pack (:103-166), the chain walks (:169-308), the greedy
-matching (:311-341), revcomp (:344-364), the k-mer chain emission
-(:394-437), the directed side tables (:448-621), seq_match and
-walk_cycles (:624-701), the edge dedup and overlap join (:755-785,
-893-940, 976-1158), sorted_algebra and the merges (:1161-1207,
-1233-1284), gather_ranges, pack_rows, emit_string_chains and
-cycle_leaders (:1287-1319, 1362-1465).
+The port's copy of kmerset_tpu/core/native.py: the loader (:17-84),
+set_threads (:87-100), the FASTA parse and 2-bit pack (:103-166), the
+chain walks (:169-308), the greedy matching (:311-341), revcomp and
+window_pack (:344-391), the k-mer chain emission (:394-437), the
+directed side tables (:448-621), seq_match and walk_cycles (:624-701),
+the edge dedup, count_hash and the overlap join (:755-785, 893-978,
+981-1158), sorted_algebra, intersect_size and the merges (:1161-1284),
+gather_ranges, pack_rows, emit_string_chains and cycle_leaders
+(:1287-1319, 1362-1465).  Left out by design: canonical_windows32,
+side_tables, succ_from_sides and unitig_succ_from_tables (:704-752,
+448-621 canonical, 788-890, 1322-1359), the host count and canonical
+graph paths, which the port runs on its torch device; and delta_decode
+(:1468-1516), the delta link format (ROADMAP A.9).
 
 Every binding is declared once, when the library loads (_SIGNATURES).
 The reference also binds each function at its first use and keeps
@@ -78,6 +82,7 @@ _SIGNATURES = {
     "kmerio_chain_emit": (_long, [_i64p, _long, _i64p, _long, _i64p, _i64p, _i64p]),
     "kmerio_greedy_match": (None, [_i64p, _i64p, _long, _i64p]),
     "kmerio_revcomp": (None, [_i64p, _long, _int, _i64p]),
+    "kmerio_window_pack": (None, [_u8p, _long, _int, _i64p]),
     "kmerio_emit_kmer_chains": (
         None, [_i64p, _int, _i64p, _i64p, _long, _int, _i64p, _u8p]
     ),
@@ -91,6 +96,7 @@ _SIGNATURES = {
         _long, [_i64p, _i64p, _long, _int, _int, _u8p, _u8p, _i64p]
     ),
     "kmerio_dedup_edges": (_long, [_i64p, _i64p, _long, _u64p, _int, _i64p]),
+    "kmerio_count_hash": (_long, [_u8p, _long, _int, _u64p, _int]),
     "kmerio_overlap_part_scratch": (_long, [_long, _int]),
     "kmerio_overlap_edges_part": (
         _long,
@@ -379,6 +385,21 @@ def revcomp(kmers: np.ndarray, k: int) -> Optional[np.ndarray]:
     return out
 
 
+def window_pack(codes: np.ndarray, k: int) -> Optional[np.ndarray]:
+    """Native rolling window pack; None without the lib."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    codes = np.ascontiguousarray(codes, dtype=np.uint8)
+    n = codes.shape[0]
+    out = np.empty(max(n - k + 1, 0), dtype=np.int64)
+    if out.size:
+        lib.kmerio_window_pack(
+            codes.ctypes.data_as(_u8p), n, k, out.ctypes.data_as(_i64p)
+        )
+    return out
+
+
 def emit_kmer_chains(
     A: np.ndarray, k: int, nodes: np.ndarray, groups: np.ndarray, oriented: bool
 ):
@@ -556,6 +577,26 @@ def dedup_edges(a: np.ndarray, b: np.ndarray) -> Optional[np.ndarray]:
     return idx[:cnt]
 
 
+def count_hash(codes: np.ndarray, k: int) -> Optional[int]:
+    """Reference-style single-thread hash counting (baseline only);
+    returns the number of distinct canonical k-mers, or None."""
+    if k > 23:
+        return None  # keys are stored in a 48-bit field (2k+1 bits needed)
+    lib = get_lib()
+    if lib is None:
+        return None
+    codes = np.ascontiguousarray(codes, dtype=np.uint8)
+    n = codes.shape[0]
+    logcap = max(4, int(max(n, 1) * 2 - 1).bit_length())
+    table = np.zeros(1 << logcap, dtype=np.uint64)
+    return int(
+        lib.kmerio_count_hash(
+            codes.ctypes.data_as(_u8p), n, k, table.ctypes.data_as(_u64p),
+            logcap,
+        )
+    )
+
+
 # Partitioned overlap join engages above this unitig count (below it the
 # fp tables are cache-resident and the partition passes are pure
 # overhead); parity tests lower it.
@@ -695,6 +736,27 @@ def sorted_algebra(a: np.ndarray, b: np.ndarray):
         _trim(a_only, int(counts[1])),
         _trim(b_only, int(counts[2])),
     )
+
+
+def intersect_size(a: np.ndarray, b: np.ndarray) -> Optional[int]:
+    """|a ∩ b| of sorted-unique int64 arrays — kmerio_sorted_algebra in
+    count-only mode (NULL outputs), the similarity-sketch kernel
+    (reference sorted-merge loop, lib/core/kmer_set_set.h:158-184).
+    Returns None when the native library is unavailable."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    a = np.ascontiguousarray(a, dtype=np.int64)
+    b = np.ascontiguousarray(b, dtype=np.int64)
+    counts = np.zeros(3, dtype=np.int64)
+    null = ctypes.cast(None, _i64p)
+    lib.kmerio_sorted_algebra(
+        a.ctypes.data_as(_i64p), a.size,
+        b.ctypes.data_as(_i64p), b.size,
+        null, null, null,
+        counts.ctypes.data_as(ctypes.POINTER(ctypes.c_long)),
+    )
+    return int(counts[0])
 
 
 def merge_counts(

@@ -1,10 +1,10 @@
 """PackedStrings: a ragged set of DNA strings as flat 2-bit codes + offsets.
 
-The port's copy of kmerset_tpu/core/strings.py:10-218, without
-all_kmers (:163-168, the host decode; the port decodes on its device,
-core/spss.py:decode_unique_kmers), and without from_strings, n,
-get_codes, to_strings and complement_codes (:32-42, 57-59, 76-82,
-221-224), which nothing of the port calls.
+The port's copy of kmerset_tpu/core/strings.py:10-224, whole.
+all_kmers (:163-168) is the host decode of the library surface, through
+core/kmer_counter.extract_kmers as in the reference; the port's own
+decode of a compact set runs on its device
+(core/spss.py:decode_unique_kmers).
 
 The reference passes std::vector<std::string> of ACGT text between SPSS
 phases (reference: lib/core/spss.h).  The TPU-native layout is structure-of-
@@ -15,7 +15,7 @@ are single vectorized passes instead of per-string loops.
 
 from __future__ import annotations
 
-from typing import List
+from typing import Iterable, List
 
 import numpy as np
 
@@ -36,6 +36,18 @@ class PackedStrings:
         return cls(np.empty(0, np.uint8), np.zeros(1, np.int64))
 
     @classmethod
+    def from_strings(cls, strings: Iterable[str]) -> "PackedStrings":
+        strings = list(strings)
+        blob = "".join(strings).encode()
+        codes = kmer_ops.BASE_TO_CODE[np.frombuffer(blob, dtype=np.uint8)]
+        if codes.size and (codes > 3).any():
+            raise ValueError("strings must contain only A/C/G/T")
+        lengths = np.fromiter((len(s) for s in strings), dtype=np.int64, count=len(strings))
+        offsets = np.zeros(len(strings) + 1, dtype=np.int64)
+        np.cumsum(lengths, out=offsets[1:])
+        return cls(codes, offsets)
+
+    @classmethod
     def from_code_lists(cls, code_lists: List[np.ndarray]) -> "PackedStrings":
         if not code_lists:
             return cls.empty()
@@ -47,6 +59,10 @@ class PackedStrings:
 
     def __len__(self) -> int:
         return self.offsets.shape[0] - 1
+
+    @property
+    def n(self) -> int:
+        return len(self)
 
     def lengths(self) -> np.ndarray:
         return np.diff(self.offsets)
@@ -62,6 +78,14 @@ class PackedStrings:
         lengths on strings shorter than k; such strings hold no k-mers,
         so the clamp agrees with all_kmers instead)."""
         return int(np.sum(np.maximum(self.lengths() - k + 1, 0)))
+
+    def get_codes(self, i: int) -> np.ndarray:
+        return self.codes[self.offsets[i] : self.offsets[i + 1]]
+
+    def to_strings(self) -> List[str]:
+        blob = kmer_ops.CODE_TO_BASE[self.codes].tobytes().decode()
+        offs = self.offsets
+        return [blob[offs[i] : offs[i + 1]] for i in range(len(self))]
 
     def to_lines_bytes(self) -> bytes:
         """The newline-terminated ASCII dump blob (exactly what
@@ -142,6 +166,13 @@ class PackedStrings:
         idx = self.offsets[1:, None] - k + np.arange(k)
         return _pack(self.codes, idx, k)
 
+    def all_kmers(self, k: int, canonical: bool) -> np.ndarray:
+        """Every k-window of every string, with duplicates — the decode
+        direction (reference GetKmerSetFromSPSS, lib/core/spss.h:1862-1941)."""
+        from .kmer_counter import extract_kmers
+
+        return extract_kmers(self.codes, self.offsets, k, canonical)
+
 
 class Packed2Strings:
     """2-bit-packed resident form of a PackedStrings: 4 bases/byte plus
@@ -191,3 +222,9 @@ def _pack(codes: np.ndarray, idx: np.ndarray, k: int) -> np.ndarray:
     for j in range(k):
         out = (out << 2) | vals[:, j]
     return out
+
+
+def complement_codes(codes: np.ndarray) -> np.ndarray:
+    """Reverse complement of a code string (reference internal::Complement,
+    lib/core/spss.h:43-68)."""
+    return (3 - codes[::-1]).astype(np.uint8)

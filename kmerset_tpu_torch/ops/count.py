@@ -2,34 +2,47 @@
 
 Counterpart of kmerset_tpu/ops/count.py, on torch tensors:
 
-    unpack + pack windows + canonical min + validity sentinel
+    [pack codes] + pack windows + canonical min + validity sentinel
     (kernel B1 for k <= 15, B2 above) -> sort -> run heads
     -> [cutoff test] -> compaction (kernel B3)
+
+Two input forms, as in the reference.  The 2-bit staged form of the
+port's own counts (count_kmers_frag, count_to_set_frag: the packed upload
+and its fragment bounds, reference count.py:418-471) computes the window
+validity on the device.  The unpacked-code form of the library surface
+(count_kmers, count_to_set, canonical_windows: one 2-bit code per base
+and the caller's window validity, reference count.py:174-182, 375-387,
+437-461, with the host helper window_validity, :474-500) packs the codes
+on their device first.  Both run the same kernels and steps.
 
 Counts come out as differences between compacted run-head positions, as
 in the reference's compaction-kernel branches (count.py:356-368,
 451-457).  The sort is torch.sort, as the reference's is XLA's sort
 outside any Pallas kernel.  Outputs are the reference's trimmed to their
-live prefix: int32 keys for k <= 15 (2k <= 30 bits), int64 keys above
-(2k <= 62 bits: up to k = 23 the reference's pair lanes combined,
+live prefix, with int32 counts and the prefix length as a Python int
+(reading it is the pipeline's one host sync).  Keys are 2k-bit numbers:
+the *_frag entries keep the kernels' int32 keys for k <= 15 (2k <= 30
+bits) and int64 above (up to k = 23 the reference's pair lanes combined,
 count.py:174-182, and above it the reference's own int64 layout,
-count.py:284-294), int32 counts, and the prefix length as a Python int
-(reading it is the pipeline's one host sync).  Where the reference sorts
-the pair lanes with lax.sort(num_keys=2) (count.py:271), the port sorts
-one int64 key: the same order.
+count.py:284-294); the unpacked-code entries return int64 keys at every
+k, as the reference's do (to64, count.py:263-264).  Where the reference
+sorts the pair lanes with lax.sort(num_keys=2) (count.py:271), the port
+sorts one int64 key: the same order.
 
-Not carried over, because they exist for the TPU only: good_sort_size
-(sort-friendly padding), _use_pallas (backend probing), _compact_runs
-(a flag-fused second sort standing in for slow TPU scatters) and
-jax_enable_x64.
+Not carried over, by design, because they exist for the TPU only:
+good_sort_size and pad_to (sort-friendly padding), _use_pallas (backend
+probing), _compact_runs (a flag-fused second sort standing in for slow
+TPU scatters) and jax_enable_x64.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from .compact import compact_select
-from .pack import MAX_K, SINGLE_MAX_K, canonical_windows, key_sentinel
+from .pack import MAX_K, SINGLE_MAX_K, key_sentinel
+from .pack import canonical_windows as pack_windows
 
 # Cutoffs up to this stay shifted compares (_run_reaches); above it the
 # scan-based run lengths (reference count.py:434).
@@ -58,33 +71,50 @@ def _no_mark(step: str) -> None:
     pass
 
 
-def sorted_window_keys(packed, bounds, total: int, L: int, k: int,
-                       canonical: bool, mark=_no_mark) -> torch.Tensor:
-    """The window keys of the staged codes (kernel B1 for k <= 15, B2
-    above), sorted; invalid windows hold the sentinel and sort last."""
+def _check_k(k: int) -> None:
     if not 1 <= k <= MAX_K:
         raise ValueError(f"k={k}: the port counts k <= {MAX_K}")
-    n_keys = L - (k - 1)
-    valid = _frag_window_validity(bounds, total, L, k)[:n_keys].contiguous()
-    mark("validity")
-    key = canonical_windows(packed, L, k, canonical, valid)
+
+
+def _sort_windows(packed, L: int, k: int, canonical: bool, valid,
+                  mark=_no_mark) -> torch.Tensor:
+    """The window keys of the L packed codes (kernel B1 for k <= 15, B2
+    above), the sentinel where `valid` is False, sorted."""
+    key = pack_windows(packed, L, k, canonical, valid)
     mark("B1 pack" if k <= SINGLE_MAX_K else "B2 pack")
     s = torch.sort(key).values
     mark("sort")
     return s
 
 
-def _sorted_runs(packed, bounds, total: int, L: int, k: int, canonical: bool,
-                 mark=_no_mark):
-    """Sorted window keys (int32 for k <= 15, int64 above; invalid windows
-    hold the sentinel and sort last) with their live and run-head masks
-    (reference count.py:253-282, the single-lane and pair branches)."""
-    s = sorted_window_keys(packed, bounds, total, L, k, canonical, mark)
+def sorted_window_keys(packed, bounds, total: int, L: int, k: int,
+                       canonical: bool, mark=_no_mark) -> torch.Tensor:
+    """The window keys of the staged codes (kernel B1 for k <= 15, B2
+    above), sorted; invalid windows hold the sentinel and sort last."""
+    _check_k(k)
+    n_keys = L - (k - 1)
+    valid = _frag_window_validity(bounds, total, L, k)[:n_keys].contiguous()
+    mark("validity")
+    return _sort_windows(packed, L, k, canonical, valid, mark)
+
+
+def _run_heads(s: torch.Tensor, k: int, mark=_no_mark):
+    """The sorted keys `s` (invalid windows hold the sentinel and sort
+    last) with their live and run-head masks (reference count.py:253-282,
+    the single-lane and pair branches)."""
     prev = torch.cat([s.new_full((1,), -1), s[:-1]])
     live = s != key_sentinel(k)
     boundary = live & (s != prev)
     mark("run heads")
     return s, live, boundary
+
+
+def _sorted_runs(packed, bounds, total: int, L: int, k: int, canonical: bool,
+                 mark=_no_mark):
+    """Sorted window keys of the staged codes (int32 for k <= 15, int64
+    above) with their live and run-head masks."""
+    s = sorted_window_keys(packed, bounds, total, L, k, canonical, mark)
+    return _run_heads(s, k, mark)
 
 
 def _run_lengths(boundary: torch.Tensor, live: torch.Tensor) -> torch.Tensor:
@@ -142,14 +172,10 @@ def count_runs(s, live, boundary, mark=_no_mark):
     return ckeys[:n], counts, n
 
 
-def count_to_set_frag(
-    packed, bounds, total: int, L: int, k: int, canonical: bool, cutoff: int
-):
-    """The cutoff-filtered distinct k-mers of the same input as
-    count_kmers_frag (reference count.py:437-471, the compaction-kernel
-    branch).  Returns (keys, n_kept, n_cut): keys (n_kept,), int32 for
-    k <= 15 and int64 above."""
-    s, live, boundary = _sorted_runs(packed, bounds, total, L, k, canonical)
+def _cutoff_runs(s, live, boundary, cutoff: int):
+    """(keys, n_kept, n_cut): the run heads of the sorted keys `s` whose
+    run has >= cutoff keys, compacted by kernel B3 (reference
+    count.py:437-471, the compaction-kernel branch)."""
     if cutoff <= _MAX_SHIFT_CUTOFF:
         keep = boundary & _run_reaches(s, live, cutoff)
     else:
@@ -157,3 +183,123 @@ def count_to_set_frag(
     (ckeys,), n_kept = compact_select([s], keep)
     m = int(n_kept)
     return ckeys[:m], m, int(boundary.sum()) - m
+
+
+def count_to_set_frag(
+    packed, bounds, total: int, L: int, k: int, canonical: bool, cutoff: int
+):
+    """The cutoff-filtered distinct k-mers of the same input as
+    count_kmers_frag.  Returns (keys, n_kept, n_cut): keys (n_kept,),
+    int32 for k <= 15 and int64 above."""
+    return _cutoff_runs(
+        *_sorted_runs(packed, bounds, total, L, k, canonical), cutoff
+    )
+
+
+# -- the unpacked-code entries (reference count.py:174-182, 376-461) -------
+
+
+def pack_codes(codes: torch.Tensor) -> torch.Tensor:
+    """(L,) 2-bit base codes -> (ceil(L/4),) uint8 on their device, 4
+    codes per byte, low bits first (the native kmerio_pack2 layout that
+    kernels B1 and B2 read).  Each code is masked to its low 2 bits
+    first, so that a code above 3 (some readers code N as 4) cannot bleed
+    into its neighbours' lanes: a window over it is invalid anyway."""
+    L = codes.shape[0]
+    c = (codes & 3).to(torch.uint8)
+    if L % 4:
+        c = torch.cat([c, c.new_zeros(4 - L % 4)])
+    c = c.view(-1, 4)
+    return c[:, 0] | (c[:, 1] << 2) | (c[:, 2] << 4) | (c[:, 3] << 6)
+
+
+def _stage_codes(codes: torch.Tensor, valid: torch.Tensor, k: int):
+    """(packed codes, window validity (L - k + 1,), L) of the caller's
+    codes and (L,) validity, on their device; None when no window fits.
+    The validity is sliced to the window starts and copied into a fresh
+    tensor where the slice is not 16-byte aligned, as B1/B2 read it with
+    16-byte copies."""
+    _check_k(k)
+    if not isinstance(codes, torch.Tensor) or not isinstance(valid, torch.Tensor):
+        raise TypeError("codes and valid must be torch tensors")
+    L = codes.shape[0]
+    if codes.dim() != 1 or valid.shape != (L,):
+        raise ValueError(f"codes must be 1-D and valid ({L},)")
+    if valid.device != codes.device:
+        raise ValueError("codes and valid must be on one device")
+    n = L - k + 1
+    if n <= 0:
+        return None
+    v = valid[:n].to(torch.bool)
+    if not v.is_contiguous() or v.data_ptr() % 16:
+        v = v.clone(memory_format=torch.contiguous_format)
+    return pack_codes(codes), v, L
+
+
+def _code_runs(codes, valid, k: int, canonical: bool):
+    """The sorted window keys of the caller's codes with their live and
+    run-head masks (as _sorted_runs), or None when no window fits."""
+    st = _stage_codes(codes, valid, k)
+    if st is None:
+        return None
+    packed, v, L = st
+    return _run_heads(_sort_windows(packed, L, k, canonical, v), k)
+
+
+def canonical_windows(codes: torch.Tensor, k: int, canonical: bool) -> torch.Tensor:
+    """(L - k + 1,) int64 window keys of the (L,) codes, canonical or
+    forward, on their device (kernel B1 for k <= 15, B2 above).  The
+    reference returns (L,) keys whose last k - 1 wrap around the end
+    (count.py:174-182); the port returns the windows that fit."""
+    _check_k(k)
+    L = codes.shape[0]
+    if L < k:
+        return torch.empty(0, dtype=torch.int64, device=codes.device)
+    return pack_windows(pack_codes(codes), L, k, canonical).long()
+
+
+def count_kmers(codes: torch.Tensor, valid: torch.Tensor, k: int,
+                canonical: bool):
+    """Counts the (canonical) k-mers of the (L,) uint8/int32 codes whose
+    window start is True in the (L,) bool `valid`, on the codes' device.
+    Returns (keys, counts, n_unique): (n_unique,) sorted distinct int64
+    keys and their int32 counts (reference count.py:376-387, trimmed)."""
+    runs = _code_runs(codes, valid, k, canonical)
+    if runs is None:
+        return (torch.empty(0, dtype=torch.int64, device=codes.device),
+                torch.empty(0, dtype=torch.int32, device=codes.device), 0)
+    keys, counts, n = count_runs(*runs)
+    return keys.long(), counts, n
+
+
+def count_to_set(codes: torch.Tensor, valid: torch.Tensor, k: int,
+                 canonical: bool, cutoff: int):
+    """The distinct (canonical) k-mers of count_kmers' input whose count
+    reaches `cutoff` (reference count.py:437-461, trimmed).  Returns
+    (keys, n_kept, n_cut): (n_kept,) sorted int64 keys."""
+    runs = _code_runs(codes, valid, k, canonical)
+    if runs is None:
+        return torch.empty(0, dtype=torch.int64, device=codes.device), 0, 0
+    keys, m, n_cut = _cutoff_runs(*runs, cutoff)
+    return keys.long(), m, n_cut
+
+
+def window_validity(offsets: np.ndarray, total: int, k: int) -> np.ndarray:
+    """Host helper: windows fully inside one fragment are valid
+    (split-at-'N' semantics, reference: lib/core/kmer_counter.h:78).
+
+    A window starting at s is invalid iff some fragment boundary o
+    (interior or the terminal `total`) lies in (s, s + k - 1] — i.e.
+    s in [o - k + 1, o).  Only those (k-1)-wide bands are materialized
+    (<= (k-1) * n_fragments indices), instead of several full-length
+    int64 temporaries."""
+    valid = np.ones(total, dtype=bool)
+    if total == 0 or k <= 1:
+        return valid
+    from ..core.graph import expand_ranges
+
+    o = np.asarray(offsets, dtype=np.int64)[1:]
+    lo = np.maximum(o - (k - 1), 0)
+    _, idx = expand_ranges(lo, np.minimum(o, total))
+    valid[idx] = False
+    return valid

@@ -1,8 +1,9 @@
 """CLI flag plumbing (reference: lib/flags.h:12-53).
 
 The port's copy of kmerset_tpu/utils/flags.py:1-160, without its JAX
-parts: honor_platform_env (:61-83), which re-pins JAX's platform, and
-the jax.profiler trace (:131-142), which is a torch.profiler trace here.
+parts (by design): honor_platform_env (:61-83), which re-pins JAX's
+platform, and the jax.profiler trace (:131-142), which is a
+torch.profiler trace here.
 Added: the port's --device flag, which every CLI also takes as a
 comma-separated list of shards (a mesh).  The flag surface is otherwise the
 reference's, with the same help strings; boolean flags accept --flag /
@@ -41,6 +42,10 @@ FLAG_MESSAGES = {
     "workers": "number of threads to use",
     "canonical": "set this flag when handling canonical k-mers",
 }
+
+
+def get_flag_message(name: str) -> str:
+    return FLAG_MESSAGES.get(name, "")
 
 
 def _str2bool(v: str) -> bool:
@@ -86,17 +91,17 @@ def add_common_flags(
     compressor: bool = False,
     canonical: bool = True,
 ) -> None:
-    parser.add_argument("--k", type=int, default=15, help=FLAG_MESSAGES["k"])
-    add_bool_flag(parser, "debug", False, FLAG_MESSAGES["debug"])
+    parser.add_argument("--k", type=int, default=15, help=get_flag_message("k"))
+    add_bool_flag(parser, "debug", False, get_flag_message("debug"))
     parser.add_argument(
-        "--decompressor", default="", help=FLAG_MESSAGES["decompressor"]
+        "--decompressor", default="", help=get_flag_message("decompressor")
     )
     if compressor:
         parser.add_argument(
-            "--compressor", default="", help=FLAG_MESSAGES["compressor"]
+            "--compressor", default="", help=get_flag_message("compressor")
         )
     parser.add_argument(
-        "--workers", type=int, default=1, help=FLAG_MESSAGES["workers"]
+        "--workers", type=int, default=1, help=get_flag_message("workers")
     )
     parser.add_argument(
         "--trace",
@@ -104,7 +109,7 @@ def add_common_flags(
         help="capture a torch.profiler trace of the run into this directory",
     )
     if canonical:
-        add_bool_flag(parser, "canonical", True, FLAG_MESSAGES["canonical"])
+        add_bool_flag(parser, "canonical", True, get_flag_message("canonical"))
 
 
 def add_device_flag(parser) -> None:
