@@ -85,8 +85,17 @@ with intersection_size and ops/join.intersection_count, a KmerCounter of
 run D's reads with 10^4 adds, get_random_kmer_set_set dumped, and
 utils/io.get_kmer_set_from_file of run A's dump, each against the
 reference's same calls in a subprocess (byte-identical directory, equal
-arrays, sizes and hashes).  Inputs are made from fixed seeds under
-build/chip_smoke/.
+arrays, sizes and hashes).  Phase 21 runs runs A, C, E and F again with
+KMERSET_TPU_LINK=slow (the gap-encoded key download, the side-code
+front-end with the count's prefetch, the resident handle), each dump
+byte-identical to its reference dump; run A must take the gap format
+and the prefetched side codes; it holds the gap encode and the side
+codes against their plain versions on the CPU copy of the input, the
+successor rebuilt from the card's side codes against the card's
+front-end, and run D's handle filter against the host filter, prints
+each download's bytes and seconds, the decode, the succ rebuild, peak
+device memory and the pooling allocator's state.  Inputs are made from
+fixed seeds under build/chip_smoke/.
 
 Each phase prints one line.  The line before the last is a JSON summary of
 the kernels; the last line is {"ok": true, "device": {...}}.  Any failure
@@ -602,7 +611,8 @@ _LOGGED = ("cutoff_count", "kmer_set.Size()", "kmer_set.Hash()",
 _PHASES = ("unitigs: device front-end", "unitigs: chain walk",
            "unitigs: emission + cycles", "spss: path cover")
 _FRONT_END_IO = re.compile(
-    r"upload ([\d.]+) s, device ([\d.]+) s, download ([\d.]+) s"
+    r"unitigs: device [a-z -]+ upload ([\d.]+) s, device ([\d.]+) s, "
+    r"download ([\d.]+) s"
 )
 
 
@@ -718,12 +728,14 @@ def _mesh_steps(lines) -> dict:
 
 def main_path_run(torch, tag: str, fasta: str, k: int, cutoff: int,
                   ref, kernels: Tuple[str, ...], device: str = "cuda",
-                  extra=()) -> dict:
+                  extra=(), link=None) -> dict:
     """Port CLI in-process on `device` (one device, or a comma-separated
     list: a mesh of those shards) against the reference CLI's host build
     (`ref`); `kernels` are the launch counters this path must raise, and
-    `extra` more CLI flags.  Returns the launch counts and the port's
-    phase times."""
+    `extra` more CLI flags; `link` sets KMERSET_TPU_LINK for the run
+    (slow: the link formats, whose canonical front-end is the side-code
+    route).  Returns the launch counts, the port's phase times, its peak
+    device memory and its log lines."""
     from kmerset_tpu_torch.cli import kmerset_build
     from kmerset_tpu_torch.ops import compact, pack
 
@@ -734,6 +746,8 @@ def main_path_run(torch, tag: str, fasta: str, k: int, cutoff: int,
     log.addHandler(cap)
     pack.launches = pack.launches_pair = compact.launches = 0
     torch.cuda.reset_peak_memory_stats()
+    if link is not None:
+        os.environ["KMERSET_TPU_LINK"] = link
     t0 = time.time()
     try:
         kmerset_build.main([
@@ -742,6 +756,7 @@ def main_path_run(torch, tag: str, fasta: str, k: int, cutoff: int,
         ])
     finally:
         log.removeHandler(cap)
+        os.environ.pop("KMERSET_TPU_LINK", None)
     t_end = time.time()
     peak_gib = torch.cuda.max_memory_allocated() / (1 << 30)
     launches = {"B1": pack.launches, "B2": pack.launches_pair,
@@ -764,7 +779,8 @@ def main_path_run(torch, tag: str, fasta: str, k: int, cutoff: int,
             raise AssertionError(f"{tag}: kernel {name} was not launched")
     spss = _phase_times(msgs)
     steps = _mesh_steps(msgs)
-    if len(spss) != len(_PHASES) + (0 if on_mesh else 3):
+    side_route = link == "slow" and "--canonical=false" not in extra
+    if len(spss) != len(_PHASES) + (0 if on_mesh or side_route else 3):
         raise AssertionError(f"{tag}: the device front-end did not run: {spss}")
     if on_mesh:
         front = "front-end" if "--canonical=false" not in extra else "side tables"
@@ -794,6 +810,11 @@ def main_path_run(torch, tag: str, fasta: str, k: int, cutoff: int,
                  f"+ emission + path cover {host:.2f} [" + ", ".join(
                      f"{p} {spss[p]:.2f}" for p in _PHASES[1:]) + "]; mesh "
                  "steps: " + ", ".join(f"{n} {v:.4f}" for n, v in steps.items()))
+    elif side_route:
+        say(tag, f"SPSS split, s: side-code front-end (succ rebuilt on the "
+                 f"host) {spss[_PHASES[0]]:.2f}; host walk + emission + path "
+                 f"cover {host:.2f} [" + ", ".join(
+                     f"{p} {spss[p]:.2f}" for p in _PHASES[1:]) + "]")
     else:
         say(tag, f"SPSS split, s: device front-end (succ on the host) "
                  f"{spss[_PHASES[0]]:.2f} [upload {spss['front-end upload']:.4f}, "
@@ -802,7 +823,7 @@ def main_path_run(torch, tag: str, fasta: str, k: int, cutoff: int,
                  f"path cover {host:.2f} [" + ", ".join(
                      f"{p} {spss[p]:.2f}" for p in _PHASES[1:]) + "]")
     return {"launches": launches, "size": mine["kmer_set.Size()"],
-            "steps": steps, **times}
+            "steps": steps, "peak_gib": peak_gib, "lines": msgs, **times}
 
 
 _LUT = np.full(256, 255, dtype=np.uint8)
@@ -2001,6 +2022,196 @@ def check_library(torch, rng, fasta_a: str, fasta_d: str, S: np.ndarray,
     return {"launches": launches}
 
 
+# Debug lines of the link formats: the count's downloads (ops/backend.py),
+# the gap format (ops/deltas.py), the side codes (ops/unitigs.py) and the
+# host succ rebuild (core/spss.py's _phase).
+_LINK_LINES = {
+    "keys": re.compile(r"count: keys download (\d+) B in ([\d.]+) s"),
+    "counts": re.compile(r"count: counts download (\d+) B in ([\d.]+) s"),
+    "deltas": re.compile(r"deltas: key download (\d+) B \(.*\) in ([\d.]+) s, "
+                         r"decode ([\d.]+) s \((\d+) keys, esc (\d+), (\d+) overflows\)"),
+    "rejected": re.compile(r"deltas: format rejected \((\w+)\): (.*); raw key download"),
+    "prefetched": re.compile(r"unitigs: side codes prefetched, download wait "
+                             r"([\d.]+) s \(\d+ k-mers, (\d+) B\)"),
+    "sides": re.compile(r"unitigs: side codes upload [\d.]+ s, device ([\d.]+) s, "
+                        r"download ([\d.]+) s \(\d+ k-mers, (\d+) B"),
+    "rebuild": re.compile(r"unitigs: succ rebuild: ([\d.]+)s"),
+    "resident": re.compile(r"unitigs: device [a-z -]+ upload ([\d.]+) s.*resident\)"),
+}
+
+
+def _link_metrics(lines) -> dict:
+    """The groups of the first line matching each _LINK_LINES pattern."""
+    out = {}
+    for line in lines:
+        for name, pat in _LINK_LINES.items():
+            m = pat.fullmatch(line) if name != "resident" else pat.search(line)
+            if m and name not in out:
+                out[name] = m.groups()
+    return out
+
+
+def _download_line(lk: dict) -> str:
+    if "deltas" in lk:
+        b, s, dec, n, esc, over = lk["deltas"]
+        keys = (f"keys gap-encoded {b} B ({int(b) / int(n):.3f} B/key, esc {esc}, "
+                f"{over} overflows) in {float(s):.4f} s, decode {float(dec):.4f} s")
+    else:
+        keys = f"keys raw {lk['keys'][0]} B in {float(lk['keys'][1]):.4f} s"
+    line = f"{keys}; counts {lk['counts'][0]} B in {float(lk['counts'][1]):.4f} s"
+    if "prefetched" in lk:
+        line += (f"; side codes (prefetched by the count) {lk['prefetched'][1]} B, "
+                 f"download wait {float(lk['prefetched'][0]):.4f} s, succ rebuild "
+                 f"on the host {float(lk['rebuild'][0]):.3f} s")
+    return line
+
+
+def _agree(what: str, got, want) -> None:
+    if not np.array_equal(got, want):
+        raise AssertionError(f"{what} differs from its plain version")
+
+
+def check_link(torch, plan, refs, runs, S: np.ndarray, fasta_d: str) -> list:
+    """Phase 21, the link formats and the resident handle on the card.
+    Runs A, C, E and F again with KMERSET_TPU_LINK=slow (the gap-encoded
+    key download where its plan takes the set, the side-code route of the
+    canonical front-end with the count's prefetch, the handle in place of
+    the front-end's upload), each dump byte-identical to the reference
+    dump of phases 5, 6, 12 and 16; run A must take the gap format with no
+    rejection and the prefetched side codes.  Then the delta encode on run
+    A's keys and the side codes against their plain versions (the same
+    torch functions on the CPU copy of the input, B3's plain version
+    there), the successor rebuilt from the card's side codes against the
+    card's front-end, and the handle's cutoff filter on run D's counter
+    (cutoff 2), each of which must launch B3 once; those launches compare
+    and stay out of the kernels line, which counts B3's encode and filter
+    sites in the slow-link runs and run D.  Prints each download's
+    bytes and seconds, the succ rebuild and the decode, peak device
+    memory beside the fast link's runs, and the pooling allocator's
+    state."""
+    import kmerset_tpu_torch
+    from kmerset_tpu_torch.core import native
+    from kmerset_tpu_torch.core.kmer_counter import KmerCounter
+    from kmerset_tpu_torch.ops import compact, deltas, pack, unitigs
+
+    t21 = time.perf_counter()
+    tag = "21 link"
+    fast_a = _link_metrics(runs[0]["lines"])
+    if "resident" not in fast_a or float(fast_a["resident"][0]) != 0.0:
+        raise AssertionError("run A's front-end did not take the resident set")
+    say(tag, f"fast link, run A: front-end on the resident set (no upload); "
+             f"{_download_line(fast_a)}")
+    out = []
+    for i in (0, 1, 3, 4):
+        name, fasta, k, cutoff, need, extra = plan[i]
+        deltas.rejections = dict.fromkeys(deltas.rejections, 0)
+        deltas.downloads = 0
+        run = main_path_run(
+            torch, f"{tag} {name.split(maxsplit=1)[1]}", fasta, k, cutoff,
+            RefDone(refs[i], runs[i]["reference_host_total_s"]), need,
+            device=DEVICE, extra=extra, link="slow")
+        lk = _link_metrics(run.pop("lines"))
+        canonical = not extra
+        if "resident" not in lk and not canonical:
+            raise AssertionError(f"{name}: the directed front-end took no handle")
+        if canonical and "prefetched" not in lk:
+            raise AssertionError(f"{name}: no prefetched side codes: {lk}")
+        if i == 0 and (deltas.downloads != 1 or any(deltas.rejections.values())):
+            raise AssertionError(f"run A: gap format {deltas.downloads}, "
+                                 f"rejections {deltas.rejections}")
+        # A plan that fits never overflows its table nor fails the decode's
+        # checks on sorted unique keys: either is a fault of the encode.
+        if deltas.rejections["overflow"] or deltas.rejections["integrity"]:
+            raise AssertionError(f"{name}: gap format rejections {deltas.rejections}")
+        n = run["size"]
+        plan_k = deltas.plan_escape(n, k, canonical)
+        if "deltas" in lk:
+            why = f"gap format, plan {plan_k}"
+        else:
+            why = (f"raw keys: {lk['rejected'][0]} rejected ({lk['rejected'][1]}); "
+                   f"expected overflows at esc 255 / 65535: "
+                   f"{deltas.expected_overflows(n, k, canonical, 255):.4g} / "
+                   f"{deltas.expected_overflows(n, k, canonical, 65535):.4g} of "
+                   f"{n} keys")
+        say(tag, f"{name.split(maxsplit=1)[1]} slow link: {why}; " + _download_line(lk))
+        say(tag, f"{name.split(maxsplit=1)[1]}: wall {run['total_s']:.3f} s "
+                 f"(fast link {runs[i]['total_s']:.3f} s), build "
+                 f"{run['spss_s']:.3f} s ({runs[i]['spss_s']:.3f} s), count "
+                 f"{run['count_s']:.3f} s ({runs[i]['count_s']:.3f} s); peak "
+                 f"device memory {run['peak_gib']:.3f} GiB ({runs[i]['peak_gib']:.3f})")
+        out.append(run)
+
+    # The encode and the side codes against their plain versions.
+    n = S.size
+    esc, cap, narrow = deltas.plan_escape(n, 15, True)
+    keys = torch.from_numpy(S.astype(np.int32)).to(DEVICE)
+    pack.launches = pack.launches_pair = compact.launches = 0
+    got = deltas.encode(keys, n, esc, cap, narrow)
+    torch.cuda.synchronize()
+    enc_launches = compact.launches
+    if enc_launches != 1:
+        raise AssertionError(f"the delta encode launched B3 {enc_launches} times")
+    t0 = time.perf_counter()
+    want = deltas.encode(keys.cpu(), n, esc, cap, narrow)
+    plain_s = time.perf_counter() - t0
+    for what, g, w in zip(("gaps", "exception table"), got, want):
+        _agree(f"delta encode {what}", g.cpu().numpy(), w.numpy())
+    enc_ms = time_ms(lambda: deltas.encode(keys, n, esc, cap, narrow), reps=3, inner=3)
+    say(tag, f"delta encode of run A's {n} keys (esc {esc}, {cap} rows, narrow "
+             f"{narrow}) equal to its plain version (CPU, B3's plain version): "
+             f"{enc_ms:.3f} ms on the card (CUDA events), {plain_s * 1e3:.1f} ms "
+             f"on the CPU; B3 launches {enc_launches}")
+    A_t = torch.from_numpy(S).to(DEVICE)
+    sub = A_t[: 1 << 18]
+    _agree("side codes (2^18 k-mers)", unitigs.dispatch_sides(sub, 15).cpu().numpy(),
+           unitigs.dispatch_sides(sub.cpu(), 15).numpy())
+    sides_ms = time_ms(lambda: unitigs.dispatch_sides(A_t, 15), reps=3, inner=2)
+    sides = unitigs.dispatch_sides(A_t, 15).cpu().numpy()
+    fe_log = _Capture()
+    logging.getLogger(CLI_LOGGER).addHandler(fe_log)
+    try:
+        (succ, term_l, term_r, _), fe_s = _timed(
+            torch, lambda: unitigs.device_unitig_succ(S, 15, device=DEVICE))
+    finally:
+        logging.getLogger(CLI_LOGGER).removeHandler(fe_log)
+    fe_io = _phase_times(msg for _, msg in fe_log.records)
+    t0 = time.perf_counter()
+    rebuilt = native.succ_from_sides(S, sides, 15)
+    rebuild_s = time.perf_counter() - t0
+    _agree("succ rebuilt from the card's side codes", rebuilt, succ)
+    _agree("side codes' terminal bits", (sides & 1) != 0, term_r)
+    _agree("side codes' left terminal bits", (sides & 16) != 0, term_l)
+    say(tag, f"side codes on the card equal to the CPU's (2^18 k-mers); run A's "
+             f"set: {sides_ms:.3f} ms on the card (CUDA events), {sides.nbytes} B, "
+             f"succ rebuilt on the host in {rebuild_s:.3f} s equal to the card's "
+             f"front-end's (upload, device and download {fe_s:.3f} s; its "
+             f"upload of the host array, which the handle saves, "
+             f"{fe_io['front-end upload']:.4f} s)")
+
+    # The handle's cutoff filter (run D, cutoff 2).
+    counter = KmerCounter.from_fasta(19, fasta_d, "", True, spss_ahead=True,
+                                     device=DEVICE)
+    compact.launches = 0
+    (ks, n_cut), filt_s = _timed(torch, lambda: counter.to_kmer_set(2))
+    filt_launches = compact.launches
+    if filt_launches != 1 or ks.device is None or not ks.device.valid_for(ks.kmers, 19):
+        raise AssertionError(f"run D's handle filter: {filt_launches} B3 launches, "
+                             f"handle {ks.device}")
+    _agree("run D's filtered handle", ks.device.graph_input().cpu().numpy(), ks.kmers)
+    h = counter._device
+    say(tag, f"run D's handle ({h.n} k-mers, {h.arr.nbytes + h.counts.nbytes} B "
+             f"on the card) filtered at cutoff 2 on the card: {ks.device.n} kept, "
+             f"equal to the host filter's set; to_kmer_set(2) {filt_s:.4f} s; "
+             f"B3 launches {filt_launches}")
+    pool = kmerset_tpu_torch.pool
+    say(tag, f"pooling allocator: {pool.how}"
+             + (f", {os.path.relpath(pool.path, ROOT)}" if pool.path else "")
+             + (f", compiled in {pool.build_s:.3f} s" if pool.build_s else "")
+             + (f"; stats {pool.module.stats()}" if pool.module is not None else ""))
+    say(tag, f"phase 21 took {time.perf_counter() - t21:.1f} s")
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -2139,6 +2350,7 @@ def main() -> int:
     runs.append(check_library(torch, np.random.default_rng(SEED + 20), fasta_a,
                               fasta_d, sets["run A"],
                               os.path.join(WORK, f"{plan[0][0]}_port.txt")))
+    runs += check_link(torch, plan, refs, runs, sets["run A"], fasta_d)
 
     for kern in kernels:
         name = kern["name"].split()[0]
@@ -2152,8 +2364,8 @@ def main() -> int:
     if ref_mods:
         raise AssertionError(f"the JAX package was imported: {ref_mods}")
     say(8, "launch counts over runs A, C, D, E, F, M and M31, their mesh "
-           "runs, the process-group runs' ranks and phase 20's library "
-           "calls: " + ", ".join(
+           "runs, the process-group runs' ranks, phase 20's library calls "
+           "and phase 21's slow-link runs: " + ", ".join(
         f"{k['name'].split()[0]} {k['launches']}" for k in kernels)
         + "; neither jax nor kmerset_tpu in sys.modules; "
         f"{time.perf_counter() - t_start:.1f} s")

@@ -19,13 +19,86 @@ code point to the original C++ project, as they do there.
 The device is always explicit: every entry point takes a `device`, and a
 request for CUDA where none is present raises instead of running on the
 CPU.
+
+At import the package installs the pooling NumPy data allocator of
+native/pool_alloc.c, as the reference does (kmerset_tpu/__init__.py:
+28-59); `pool` says how that went.
 """
 
 from __future__ import annotations
 
+import os
+import sys
+from typing import NamedTuple, Optional
+
 import torch
 
 __version__ = "0.1.0"
+
+
+class Pool(NamedTuple):
+    """How the pooling allocator was installed at import: `how` is
+    "checkout" (native/kmerset_pool<EXT_SUFFIX>), "built" (the port's
+    build of native/pool_alloc.c, build_s its compile seconds, None when
+    an earlier process built it), "present" (a kmerset_pool module was
+    already imported, as the reference's import installs it), "off"
+    (KMERSET_TPU_POOL=0) or "unavailable" (it neither loads nor builds);
+    `module` is the extension (its stats() counts pool hits), or None."""
+
+    how: str
+    path: Optional[str]
+    build_s: Optional[float]
+    module: object
+
+
+def _load_pool(path: str):
+    """The kmerset_pool extension at `path`, or None when it does not
+    load (a file for another interpreter or numpy, say)."""
+    import importlib.util
+
+    try:
+        spec = importlib.util.spec_from_file_location("kmerset_pool", path)
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+    except (ImportError, OSError):
+        return None
+    return mod
+
+
+def _install_pool_allocator() -> Pool:
+    """Installs the pooling NumPy data allocator (native/pool_alloc.c), the
+    counterpart of the original project's mimalloc link (reference
+    kmerset_tpu/__init__.py:28-59): large NumPy temporaries reuse warm
+    pages instead of fresh ones from the OS.  It takes the checkout's
+    native/kmerset_pool<EXT_SUFFIX> where that loads, else compiles
+    pool_alloc.c without OpenMP into build/ (_nativebuild.build_pool;
+    native/Makefile forces -fopenmp, which a compiler without an OpenMP
+    runtime refuses).  It installs nothing when a kmerset_pool module is
+    already imported (one pool per process) or KMERSET_TPU_POOL=0, and,
+    like the reference, skips quietly when the extension neither loads
+    nor builds: it is a host allocator, neither the device nor a
+    kernel."""
+    if os.environ.get("KMERSET_TPU_POOL", "1") == "0":
+        return Pool("off", None, None, None)
+    present = sys.modules.get("kmerset_pool")
+    if present is not None:
+        return Pool("present", getattr(present, "__file__", None), None, present)
+    import sysconfig
+
+    from ._nativebuild import _native_dir, build_pool
+
+    suffix = sysconfig.get_config_var("EXT_SUFFIX") or ".so"
+    checkout = os.path.join(_native_dir(), "kmerset_pool" + suffix)
+    how, path, secs = "checkout", checkout, None
+    mod = _load_pool(checkout) if os.path.isfile(checkout) else None
+    if mod is None:
+        how, (path, secs) = "built", build_pool()
+        mod = _load_pool(path) if path is not None else None
+    if mod is None:
+        return Pool("unavailable", None, None, None)
+    mod.install()
+    sys.modules["kmerset_pool"] = mod
+    return Pool(how, path, secs, mod)
 
 
 def resolve_device(name) -> torch.device:
@@ -47,3 +120,6 @@ def resolve_device(name) -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {name!r} (use cuda or cpu)")
     return dev
+
+
+pool = _install_pool_allocator()

@@ -16,6 +16,13 @@ once per process and under a file lock, as ops/_build.py builds the
 kernels.  core/native.py loads it when native/libkmerio.so is missing
 or does not load.
 
+The pooling NumPy allocator (native/pool_alloc.c, a CPython extension
+that kmerset_tpu_torch/__init__.py installs): build_pool compiles it the
+same way, without OpenMP, against the running interpreter's and numpy's
+headers, into the same directory, where the checkout's
+native/kmerset_pool<EXT_SUFFIX> (built by `make -C native`, which forces
+-fopenmp) is missing or does not load.
+
 The reference ships its native code through a CMake build the user runs
 explicitly (reference: CMakeLists.txt:41-50, README.md:196-205).  Here the
 native layer is an *optional accelerator*: every caller has a complete
@@ -44,7 +51,9 @@ BUILD_DIR = os.path.join(
     "build", "kmerset_tpu_torch",
 )
 SERIAL_FLAGS = ["-O3", "-fPIC", "-shared", "-Wno-unknown-pragmas"]
-# build_serial's result in this process: (path or None, compile seconds).
+POOL_FLAGS = ["-O3", "-fPIC", "-shared"]
+# The results in this process of build_serial ("result") and build_pool
+# ("pool"): (path or None, compile seconds).
 _SERIAL: dict = {}
 
 
@@ -149,41 +158,86 @@ def build_serial() -> Tuple[Optional[str], Optional[float]]:
     None) when there is no kmerio.c, no C compiler (`$CC`, else `cc`) or
     the compile fails; the callers then take their numpy paths.  One
     attempt per process."""
-    if "result" in _SERIAL:
-        return _SERIAL["result"]
-    _SERIAL["result"] = (None, None)
-    if os.environ.get("KMERSET_TPU_NO_AUTOBUILD"):
-        return _SERIAL["result"]
+    if "result" not in _SERIAL:
+        try:
+            out = serial_library_path()
+        except OSError:  # no native/kmerio.c
+            out = None
+        _SERIAL["result"] = _compile_once(out, "kmerio.c", SERIAL_FLAGS)
+    return _SERIAL["result"]
+
+
+def _pool_flags() -> Optional[list]:
+    """POOL_FLAGS with the running interpreter's and numpy's include
+    directories, or None when they cannot be found."""
+    import sysconfig
+
     try:
-        out = serial_library_path()
-    except OSError:  # no native/kmerio.c
-        return _SERIAL["result"]
+        import numpy
+
+        return POOL_FLAGS + [f"-I{sysconfig.get_paths()['include']}",
+                             f"-I{numpy.get_include()}"]
+    except (ImportError, KeyError):
+        return None
+
+
+def pool_library_path(flags) -> str:
+    """Where build_pool puts the pooling allocator of the current
+    native/pool_alloc.c built with `flags` (_pool_flags)."""
+    import sysconfig
+
+    suffix = sysconfig.get_config_var("EXT_SUFFIX") or ".so"
+    h = hashlib.sha256(" ".join(flags).encode())
+    with open(os.path.join(_native_dir(), "pool_alloc.c"), "rb") as f:
+        h.update(f.read())
+    return os.path.join(BUILD_DIR, f"kmerset_pool_{h.hexdigest()[:16]}{suffix}")
+
+
+def build_pool() -> Tuple[Optional[str], Optional[float]]:
+    """(path, compile seconds) of the pooling allocator extension,
+    compiled as build_serial compiles the library: (None, None) when
+    there is no pool_alloc.c, no headers, no compiler or the compile
+    fails (no Python.h, say).  One attempt per process."""
+    if "pool" not in _SERIAL:
+        flags = _pool_flags()
+        try:
+            out = pool_library_path(flags) if flags is not None else None
+        except OSError:  # no native/pool_alloc.c
+            out = None
+        _SERIAL["pool"] = _compile_once(out, "pool_alloc.c", flags)
+    return _SERIAL["pool"]
+
+
+def _compile_once(out: Optional[str], source: str, flags) -> Tuple[Optional[str], Optional[float]]:
+    """Compiles native/<source> with `flags` into `out` unless it is
+    there, under a file lock in BUILD_DIR: (out, seconds), seconds None
+    when it was already built; (None, None) without `out`, with
+    KMERSET_TPU_NO_AUTOBUILD set, or when the compile fails."""
+    if out is None or os.environ.get("KMERSET_TPU_NO_AUTOBUILD"):
+        return None, None
     if os.path.isfile(out):
-        _SERIAL["result"] = (out, None)
-        return _SERIAL["result"]
+        return out, None
     try:
         import fcntl
 
         os.makedirs(BUILD_DIR, exist_ok=True)
         with open(os.path.join(BUILD_DIR, ".native.lock"), "a+") as lock:
             fcntl.flock(lock, fcntl.LOCK_EX)
-            secs = None
-            if not os.path.isfile(out):  # not built while we waited
-                tmp = f"{out}.{os.getpid()}.tmp"
-                t0 = time.perf_counter()
-                proc = subprocess.run(
-                    [os.environ.get("CC") or "cc", *SERIAL_FLAGS, "-o", tmp,
-                     os.path.join(_native_dir(), "kmerio.c")],
-                    stdout=subprocess.DEVNULL, stderr=subprocess.DEVNULL,
-                    timeout=300, check=False,
-                )
-                if proc.returncode != 0:
-                    if os.path.exists(tmp):
-                        os.unlink(tmp)
-                    return _SERIAL["result"]
-                os.replace(tmp, out)
-                secs = time.perf_counter() - t0
-        _SERIAL["result"] = (out, secs)
+            if os.path.isfile(out):  # built while we waited
+                return out, None
+            tmp = f"{out}.{os.getpid()}.tmp"
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                [os.environ.get("CC") or "cc", *flags, "-o", tmp,
+                 os.path.join(_native_dir(), source)],
+                stdout=subprocess.DEVNULL, stderr=subprocess.DEVNULL,
+                timeout=300, check=False,
+            )
+            if proc.returncode != 0:
+                if os.path.exists(tmp):
+                    os.unlink(tmp)
+                return None, None
+            os.replace(tmp, out)
+            return out, time.perf_counter() - t0
     except (OSError, subprocess.SubprocessError):  # no compiler, no disk
-        pass
-    return _SERIAL["result"]
+        return None, None

@@ -9,6 +9,11 @@ k = 15, B2 for k = 19, 23 and 31, then B3), and so does the SPSS build's
 unitig graph front-end, canonical or directed (--canonical=false); the
 cutoff filter, the chain walk, the string emission, the path cover and
 the dump run on the host, in the port's copy of the reference's code.
+The counted set stays on the device for the front-end (ops/resident.py;
+a cutoff above 1 filters it there too), and on a slow link
+(KMERSET_TPU_LINK=slow, or a probed link under 1 GiB/s) the keys come
+down gap-encoded (ops/deltas.py) and the front-end's result as 1-byte
+side codes, launched by the count (spss_ahead, as the reference's).
 A comma-separated --device list (cuda:0,cuda:0,cuda:0,cuda:0 is four
 shards on one card) runs the count, the decode and every graph phase on
 a mesh of those shards (parallel/), the reference's forced mesh.  With
@@ -72,7 +77,7 @@ def main(argv=None) -> None:
         try:
             counter = KmerCounter.from_fasta(
                 cfg.k, args.file, args.decompressor, args.canonical,
-                device=device, mesh=mesh,
+                spss_ahead=True, device=device, mesh=mesh,
             )
         except core_io.IOError_ as e:
             logger.error("failed to parse FASTA file: %s", e)

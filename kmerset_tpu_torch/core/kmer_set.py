@@ -4,8 +4,9 @@ The port's copy of kmerset_tpu/core/kmer_set.py:14-180: construction,
 the queries and the set algebra (host numpy and native merges, as in the
 reference, which has no device route for one set's algebra), equality,
 the XOR hash, the bucket view of the sketch sampling, and
-intersection_size.  Left out: the `device` slot (:49-54), the resident
-handle of ops/resident.py (ROADMAP A.9).
+intersection_size, and the `device` slot (:43-49): the set's resident
+handle (ops/resident.DeviceKmers), set by the count, never passed on
+through set algebra.
 
 The reference stores k-mers in 1<<N hash-set buckets keyed by the low
 2K-N bits (reference: lib/core/kmer_set.h:45-60).  Here a set is a single
@@ -32,7 +33,7 @@ class KmerSet:
     over sorted arrays.
     """
 
-    __slots__ = ("k", "kmers")
+    __slots__ = ("k", "kmers", "device")
 
     def __init__(self, k: int, kmers: np.ndarray | None = None, *, _sorted: bool = False):
         self.k = k
@@ -42,6 +43,10 @@ class KmerSet:
         if not _sorted:
             kmers = sorted_unique(kmers)
         self.kmers = kmers
+        # The resident handle (ops/resident.DeviceKmers) the count sets: a
+        # hint that consumers validate (valid_for, on); the host array
+        # stays authoritative.  New sets start without one.
+        self.device = None
 
     # -- construction ------------------------------------------------------
 

@@ -14,10 +14,10 @@ What differs from the reference's:
   spss.get_spss_canonical or, directed, spss.get_spss; with a `mesh`
   (parallel/mesh.Mesh) the build and the decode run on its shards;
 - a lazy build (lazy=True, the multi-set loop's deferred construction)
-  stores (kmers, canonical, fast) and builds the same way on first use of
-  the strings (the spss property, reference :42-67).  The reference's
-  pending tuple also carries the KmerSet's resident device handle; the
-  port has none (ROADMAP A.9);
+  stores (kmers, canonical, fast, the KmerSet's resident handle) and
+  builds the same way on first use of the strings (the spss property,
+  reference :42-67, 115), the handle re-attached to the set it builds
+  (the front-end validates it then);
 - the decode (kmers, reference :125-133) runs through the port's
   spss.decode_unique_kmers on the compact's device.
 The setter, pack_in_memory, dump, load, size, weight and sampled_kmers
@@ -69,8 +69,9 @@ class KmerSetCompact:
         if self._spss is None and self._spss2 is not None:
             return self._spss2.unpack()
         if self._spss is None:
-            kmers, canonical, fast = self._pending
+            kmers, canonical, fast, resident = self._pending
             ks = KmerSet(self.k, kmers, _sorted=True)
+            ks.device = resident
             t0 = time.perf_counter()
             if canonical:
                 built = spss_mod.get_spss_canonical(
@@ -118,7 +119,7 @@ class KmerSetCompact:
         lazy=True, when the strings are first used, and keeps the source
         k-mers as the decode cache, as the reference does."""
         obj = cls(kmer_set.k, None, device=device, mesh=mesh)
-        obj._pending = (kmer_set.kmers, canonical, fast)
+        obj._pending = (kmer_set.kmers, canonical, fast, kmer_set.device)
         if not lazy:
             obj.spss  # noqa: B018 - build now
         obj._kmers_cache = kmer_set.kmers

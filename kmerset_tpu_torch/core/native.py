@@ -12,11 +12,13 @@ directed side tables (:448-621), seq_match and walk_cycles (:624-701),
 the edge dedup, count_hash and the overlap join (:755-785, 893-978,
 981-1158), sorted_algebra, intersect_size and the merges (:1161-1284),
 gather_ranges, pack_rows, emit_string_chains and cycle_leaders
-(:1287-1319, 1362-1465).  Left out by design: canonical_windows32,
-side_tables, succ_from_sides and unitig_succ_from_tables (:704-752,
-448-621 canonical, 788-890, 1322-1359), the host count and canonical
-graph paths, which the port runs on its torch device; and delta_decode
-(:1468-1516), the delta link format (ROADMAP A.9).
+(:1287-1319, 1362-1465), and the two host halves of the link formats:
+succ_from_sides (:788-890), the successor rebuilt from the device's side
+codes, with its routing to the partitioned edition, and delta_decode
+(:1468-1516), the decoder of ops/deltas.py's key format.  Left out by
+design: canonical_windows32, side_tables and unitig_succ_from_tables
+(:704-752, 448-621 canonical, 1322-1359), the host count and canonical
+graph paths, which the port runs on its torch device.
 
 Every binding is declared once, when the library loads (_SIGNATURES).
 The reference also binds each function at its first use and keeps
@@ -33,8 +35,8 @@ does nothing); edition() says which one is loaded.  Only when neither
 loads does every caller take its numpy path.
 Also left out: the partitioned side-table edition, which serves
 canonical sets only (the port builds those on its device), and the
-KMERSET_TPU_NO_PART switch of the partitioned overlap join (its output is
-bit-identical to the fp edition's either way).
+KMERSET_TPU_NO_PART switch of the partitioned overlap join and succ
+rebuild (their output is bit-identical to the fp edition's either way).
 """
 
 from __future__ import annotations
@@ -125,6 +127,15 @@ _SIGNATURES = {
         None, [_u8p, _i64p, _int, _i64p, _i64p, _long, _int, _i64p, _u8p]
     ),
     "kmerio_cycle_leaders": (_long, [_i64p, _long, _int, _i64p]),
+    "kmerio_succ_from_sides": (_long, [_i64p, _long, _int, _u8p, _u64p, _int, _i64p]),
+    "kmerio_succ_part_scratch": (_long, [_long, _int]),
+    "kmerio_succ_from_sides_part": (
+        _long,
+        [_i64p, _long, _int, _u8p, _u64p, _int, _u8p, ctypes.c_int64, _i64p],
+    ),
+    "kmerio_delta_decode": (
+        _long, [ctypes.c_void_p, _int, _long, _i64p, _long, _i64p]
+    ),
 }
 
 
@@ -890,3 +901,79 @@ def cycle_leaders(succ: np.ndarray, oriented: bool):
     if cnt < 0:
         return None
     return out[:cnt]
+
+
+# The succ rebuild from side codes takes the partitioned edition from this
+# many k-mers on (reference native.py:752); parity tests lower it.
+_SUCC_PART_MIN = 1 << 20
+# The most k-mers whose side codes succ_from_sides takes: its fp slots
+# carry int32 indices, so 2n must fit an int32 (reference :848).
+MAX_SIDES_KMERS = np.iinfo(np.int32).max >> 1
+
+
+def succ_from_sides(A: np.ndarray, sides: np.ndarray, k: int) -> Optional[np.ndarray]:
+    """Oriented successor array rebuilt from the device's per-k-mer side
+    codes (ops/unitigs.device_unitig_sides, the 1 B/k-mer link format):
+    one fp probe per non-terminal side.  From _SUCC_PART_MIN k-mers on it
+    takes the cache-blocked partitioned edition (kmerio_succ_from_sides_
+    part, bit-identical output), sharing the grow-only partition scratch
+    with the overlap join.  Returns succ (2n,) int64 with -1 at terminal
+    exits, or None (no library, a probe miss on corrupt side codes, a
+    length mismatch or more than MAX_SIDES_KMERS k-mers)."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    A = np.ascontiguousarray(A, dtype=np.int64)
+    sides = np.ascontiguousarray(sides, dtype=np.uint8)
+    n = A.shape[0]
+    if n == 0:
+        return np.empty(0, dtype=np.int64)
+    if sides.shape[0] != n or n > MAX_SIDES_KMERS:
+        return None
+    use_part = n >= _SUCC_PART_MIN
+    # The fp edition wants a low load factor (every extra probe is a DRAM
+    # miss); the partitioned one probes cache-resident regions, so about
+    # 50% load halves the table fill for free.
+    logcap = max(4, int(n + (n >> 1) if use_part else n * 2 - 1).bit_length())
+    table = _zeroed_u64(logcap)
+    succ = np.empty(2 * n, dtype=np.int64)
+    args = (A.ctypes.data_as(_i64p), n, k, sides.ctypes.data_as(_u8p),
+            table.ctypes.data_as(_u64p), logcap)
+    if use_part:
+        global _part_scratch
+        sbytes = int(lib.kmerio_succ_part_scratch(n, logcap))
+        with _part_lock:
+            if _part_scratch is None or _part_scratch.nbytes < sbytes:
+                _part_scratch = np.empty(sbytes, dtype=np.uint8)
+            rc = lib.kmerio_succ_from_sides_part(
+                *args, _part_scratch.ctypes.data_as(_u8p),
+                _part_scratch.nbytes, succ.ctypes.data_as(_i64p),
+            )
+        if rc == 0:
+            return succ
+        if rc == -1:
+            return None  # a probe miss: corrupt side codes
+        table[:] = 0  # scratch too small: the fp edition below
+    if lib.kmerio_succ_from_sides(*args, succ.ctypes.data_as(_i64p)) != 0:
+        return None
+    return succ
+
+
+def delta_decode(d: np.ndarray, exc: np.ndarray, n_exc: int) -> Optional[np.ndarray]:
+    """The sorted int64 keys of ops/deltas.py's wire format: d (n,) uint8
+    or uint16 gaps, patched at the first n_exc rows of exc (m, 2)
+    (ascending (position, true gap) rows, int32 or int64), then summed
+    (kmerio_delta_decode).  None without the library, for another gap
+    dtype, or when the rows are out of order or the keys are not
+    strictly increasing (positional corruption)."""
+    lib = get_lib()
+    if lib is None or d.dtype not in (np.uint8, np.uint16):
+        return None
+    d = np.ascontiguousarray(d)
+    exc = np.ascontiguousarray(exc[:n_exc], dtype=np.int64)
+    out = np.empty(d.shape[0], dtype=np.int64)
+    rc = lib.kmerio_delta_decode(
+        d.ctypes.data_as(ctypes.c_void_p), d.itemsize, d.shape[0],
+        exc.ctypes.data_as(_i64p), n_exc, out.ctypes.data_as(_i64p),
+    )
+    return out if rc == 0 else None

@@ -39,10 +39,16 @@ The port's own editions:
 - get_unitigs_canonical (:559-730): the front half (side tables, terminal
   tests, oriented successor, :580-652) is one call of the port's device
   front-end (ops/unitigs.device_unitig_succ) or of the mesh's
-  (driver.mesh_unitig_succ); the chain walk and string emission half
-  (:653-730) follows the reference line for line;
+  (driver.mesh_unitig_succ); on a slow link (ops/backend.side_code_route)
+  it is the side-code route of :598-622 instead: the 1 B/k-mer side
+  codes (ops/unitigs.device_unitig_sides) and the successor rebuilt on
+  the host (native.succ_from_sides).  The set's resident handle
+  (KmerSet.device, validated as the reference does, :586-592) stands in
+  for the upload on one device; a mesh ignores it.  The chain walk and
+  string emission half (:653-730) follows the reference line for line;
 - get_unitigs (:733-770): its directed side tables are built on the
-  device (ops/unitigs.device_side_tables_directed) or on the mesh
+  device (ops/unitigs.device_side_tables_directed, from the resident
+  handle where there is a valid one, :742-746) or on the mesh
   (driver.mesh_side_tables) where the reference builds them on the host
   (under its host pin) or through ops/neighbors.device_side_tables;
 - get_spss_canonical (:1082-1084);
@@ -65,7 +71,11 @@ from typing import List, Tuple
 import numpy as np
 
 from ..ops import backend
-from ..ops.unitigs import device_side_tables_directed, device_unitig_succ
+from ..ops.unitigs import (
+    device_side_tables_directed,
+    device_unitig_sides,
+    device_unitig_succ,
+)
 from ..parallel import driver as mesh_driver
 from . import kmer as kmer_ops
 from . import native
@@ -526,6 +536,19 @@ def _mesh_chain_walk_kept(
     return _permute_groups(nodes_k, groups_k, order)
 
 
+def _resident(kmer_set: KmerSet, device):
+    """The set's resident handle (KmerSet.device) when it mirrors the set
+    and lies on `device`, else None: the front-end then uploads the host
+    array, which stays authoritative (reference spss.py:586-592,
+    742-746).  The port's handle holds int64 keys at every k, the layout
+    of both graphs' front-ends, so the reference's lane check (a literal
+    k <= 15 for its int32 handles, spss.py:134) has no counterpart."""
+    res = kmer_set.device
+    if res is None or not res.valid_for(kmer_set.kmers, kmer_set.k) or not res.on(device):
+        return None
+    return res
+
+
 def get_unitigs_canonical(kmer_set: KmerSet, *, device, mesh=None) -> PackedStrings:
     """Maximal non-branching paths of the bidirected de Bruijn graph
     (reference: lib/core/spss.h:231-615), with the graph front-end on
@@ -547,8 +570,26 @@ def get_unitigs_canonical(kmer_set: KmerSet, *, device, mesh=None) -> PackedStri
         if on_mesh:
             # Sharded side tables + mate exchange + successor assembly.
             succ, term_l, term_r, both = mesh_driver.mesh_unitig_succ(A, k, mesh)
+        elif backend.side_code_route(n, device):
+            # The slow link's format: 1 byte per k-mer of side codes in
+            # place of the 8-byte successor and 3 mask bytes; the host
+            # rebuilds the same successor with one probe per side.
+            res = _resident(kmer_set, device)
+            with _phase("unitigs: side-code fetch"):
+                sides = device_unitig_sides(A, k, device=device, resident=res)
+            with _phase("unitigs: succ rebuild"):
+                succ = native.succ_from_sides(A, sides, k)
+            if succ is None:
+                raise RuntimeError(
+                    "the native succ rebuild refused the device's side codes"
+                )
+            term_r = (sides & 1).astype(bool)
+            term_l = (sides & 16).astype(bool)
+            both = term_l & term_r
         else:
-            succ, term_l, term_r, both = device_unitig_succ(A, k, device=device)
+            succ, term_l, term_r, both = device_unitig_succ(
+                A, k, device=device, resident=_resident(kmer_set, device)
+            )
     with _phase("unitigs: chain walk"):
         starts_r_exit = np.flatnonzero(term_l & ~term_r) * 2
         starts_l_exit = np.flatnonzero(term_r & ~term_l) * 2 + 1
@@ -638,7 +679,7 @@ def get_unitigs(kmer_set: KmerSet, *, device, mesh=None) -> PackedStrings:
             )
         else:
             (outdeg, nxt), (indeg, prv) = device_side_tables_directed(
-                A, k, device=device
+                A, k, device=device, resident=_resident(kmer_set, device)
             )
     with _phase("unitigs: chain walk"):
         # Start/end tests (reference: lib/core/spss.h:96-146).

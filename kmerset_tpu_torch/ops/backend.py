@@ -18,17 +18,32 @@ the sorted runs on the host: the port's copies of the reference's
 _merge_count_pair and _merge_cascade (backend.py:522-567), and its own
 keys-only _merge_key_pair.
 
-There is no host fallback: on CUDA an error raises.  Left for later slices
-(ROADMAP A): the slow-link probe and gap-encoded key downloads, resident
-device handles and side-code prefetch.  The mesh (parallel/) stages
-its shards with `stage` and plans them with `window_ceiling` and
+The link formats (reference backend.py:141-200, 694-820): `_slow_link`
+says whether the host-device link is slow (KMERSET_TPU_LINK=fast|slow, or
+one 8 MB round trip on a CUDA device under 1 GiB/s; the CPU is fast).  On
+a slow link device_count downloads its sorted keys gap-encoded
+(ops/deltas.py) from DELTA_MIN_KEYS keys on, and, when a build follows
+(spss_ahead), launches the side codes of the graph front-end
+(ops/resident.DeviceKmers.prefetch_sides) before its downloads.  With
+resident=True it also returns the set resident on the device
+(ops/resident.py), which the front-end takes without an upload.  The
+reference's on-disk cache of the probe's verdict (_link_cache_path) and
+its backend liveness probe (_backend_alive) amortised a TPU backend dial
+across processes; a CUDA probe costs milliseconds, so the port probes once
+per process and device instead.
+
+There is no host fallback: on CUDA an error raises.  The mesh (parallel/)
+stages its shards with `stage` and plans them with `window_ceiling` and
 `query_chunk_kmers`.  No pow2 padding either (good_sort_size exists for
 the TPU sort).
 """
 
 from __future__ import annotations
 
+import logging
+import os
 import threading
+import time
 from typing import Iterator, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -38,7 +53,10 @@ from .. import resolve_device
 from ..core import native
 from ..core.arrays import sorted_unique
 from . import count as count_ops
+from . import deltas
 from .pack import SINGLE_MAX_K
+
+logger = logging.getLogger("kmerset")
 
 # The kernels index windows and keys with int32 (the position lane of the
 # compaction carries run-head positions as int32): the bound of one shot,
@@ -70,8 +88,28 @@ DEVICE_MEMORY_SHARE = 0.5
 # Planning budget on the CPU, where a run shares the host's memory.
 HOST_BUDGET = 2 << 30
 
+# Keys from which device_count downloads its keys gap-encoded on a slow
+# link (reference backend.py:691).
+DELTA_MIN_KEYS = 1 << 20
+# A round trip below this rate makes a link slow (reference backend.py:186),
+# measured over _PROBE_BYTES each way.
+SLOW_LINK_BYTES_PER_S = 1 << 30
+_PROBE_BYTES = 8 << 20
+
 _locks: dict = {}
 _locks_guard = threading.Lock()
+# The probe's verdict per device (a torch.device key), and its lock.
+_link_slow: dict = {}
+_link_guard = threading.Lock()
+
+
+def canonical_device(device) -> torch.device:
+    """`device` as a torch.device with the index of a bare "cuda" filled
+    in, so that two names of one card compare equal."""
+    dev = resolve_device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
 
 
 def device_lock(device) -> threading.Lock:
@@ -82,11 +120,54 @@ def device_lock(device) -> threading.Lock:
     counters see no concurrent increments.  The host work between them
     (chain walk, path cover, merges, file I/O) still runs in parallel.
     No device section calls another, so the lock is not reentrant."""
-    dev = resolve_device(device)
-    if dev.type == "cuda" and dev.index is None:
-        dev = torch.device("cuda", torch.cuda.current_device())
+    dev = canonical_device(device)
     with _locks_guard:
         return _locks.setdefault(dev, threading.Lock())
+
+
+def sync(dev: torch.device) -> None:
+    """Waits for the work queued on `dev` (nothing to wait for on the
+    CPU)."""
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _slow_link(device) -> bool:
+    """Whether the link between the host and `device` is slow, so that the
+    link formats pay (reference backend.py:141-200).  KMERSET_TPU_LINK=fast
+    or slow decides, read at every call; otherwise the CPU is fast, and a
+    CUDA device is slow when one round trip of _PROBE_BYTES (upload, an
+    add, download) runs below SLOW_LINK_BYTES_PER_S, probed once per
+    process and device."""
+    env = os.environ.get("KMERSET_TPU_LINK", "")
+    if env in ("fast", "slow"):
+        return env == "slow"
+    dev = canonical_device(device)
+    if dev.type != "cuda":
+        return False
+    with _link_guard:
+        if dev not in _link_slow:
+            x = torch.zeros(_PROBE_BYTES // 4, dtype=torch.int32)
+            (x.to(dev) + 1).cpu()  # first use of the device and the op
+            sync(dev)
+            t0 = time.perf_counter()
+            (x.to(dev) + 1).cpu()
+            rate = 2 * x.nbytes / max(time.perf_counter() - t0, 1e-9)
+            _link_slow[dev] = rate < SLOW_LINK_BYTES_PER_S
+            logger.debug("backend: link to %s %.3g B/s round trip: %s", dev,
+                         rate, "slow" if _link_slow[dev] else "fast")
+        return _link_slow[dev]
+
+
+def side_code_route(n: int, device) -> bool:
+    """Whether the canonical front-end of n k-mers on `device` downloads
+    side codes (1 B per k-mer, ops/unitigs.device_unitig_sides) and
+    rebuilds the successor on the host (core/native.succ_from_sides): on a
+    slow link, with the native library loaded, up to the rebuild's
+    native.MAX_SIDES_KMERS (reference core/spss.py:604 and the prefetch
+    gate, backend.py:755-765)."""
+    return (0 < n <= native.MAX_SIDES_KMERS and _slow_link(device)
+            and host_library_loaded())
 
 
 def memory_budget(device) -> int:
@@ -174,31 +255,74 @@ def host_library_loaded() -> bool:
     return native.get_lib() is not None
 
 
-def _count_fetch(keys, counts, value_max: int) -> Tuple[np.ndarray, np.ndarray]:
-    """(keys int64, counts) on the host.  With value_max > 0 the counts are
-    saturated on the device and, up to 255, downloaded as uint8
-    (reference backend.py:776-789).  Keys cross in their device dtype:
-    int32 for k <= 15, int64 above."""
-    keys = keys.cpu().numpy().astype(np.int64, copy=False)
+def _download(what: str, t: torch.Tensor) -> np.ndarray:
+    """t on the host, with its bytes and seconds logged at debug level
+    (timed from when the work queued before it is done)."""
+    sync(t.device)
+    t0 = time.perf_counter()
+    out = t.cpu().numpy()
+    logger.debug("count: %s download %d B in %.4f s", what, out.nbytes,
+                 time.perf_counter() - t0)
+    return out
+
+
+def _counts_fetch(counts, value_max: int) -> np.ndarray:
+    """The counts on the host.  With value_max > 0 they are saturated on
+    the device and, up to 255, downloaded as uint8 (reference
+    backend.py:776-789)."""
     if value_max:
         counts = torch.clamp(counts, max=value_max)
         if value_max <= 255:
-            return keys, counts.to(torch.uint8).cpu().numpy()
-    return keys, counts.cpu().numpy().astype(np.int64)
+            return _download("counts", counts.to(torch.uint8))
+    return _download("counts", counts).astype(np.int64)
 
 
 def device_count(
     codes: np.ndarray, offsets: np.ndarray, k: int, canonical: bool, *,
-    device, value_max: int = 0,
-) -> Tuple[np.ndarray, np.ndarray]:
+    device, value_max: int = 0, resident: bool = False,
+    spss_ahead: bool = False,
+) -> Tuple:
     """Sorted distinct (canonical) k-mers of the fragment stream and their
-    counts, counted on `device` in one shot."""
+    counts, counted on `device` in one shot: (keys int64, counts), and
+    with resident=True a third element, the set kept on the device
+    (ops/resident.DeviceKmers, None for an empty set), its endpoints
+    stamped from the downloaded keys.
+
+    The reference's order (backend.py:694-820): on a slow link
+    (_slow_link) and from DELTA_MIN_KEYS keys on, the gap encode of the
+    keys is launched first (ops/deltas.py); then the handle is made from
+    the count's device outputs; when a build follows (spss_ahead) and the
+    canonical front-end will take the side-code route (side_code_route),
+    the handle's side codes are launched; then the keys are downloaded
+    (gap-encoded where the format takes them, else in their device dtype:
+    int32 for k <= 15, int64 above), then the counts; last the handle's
+    endpoints are stamped and its side codes start their download."""
     with device_lock(device):
         staged = stage(codes, offsets, k, device)
         if staged is None:
-            return np.empty(0, np.int64), np.empty(0, np.int64)
-        keys, counts, _ = count_ops.count_kmers_frag(*staged, k, canonical)
-        return _count_fetch(keys, counts, value_max)
+            empty = np.empty(0, np.int64), np.empty(0, np.int64)
+            return (*empty, None) if resident else empty
+        keys, counts, n = count_ops.count_kmers_frag(*staged, k, canonical)
+        pending = None
+        # The size first: a small count never probes the link.
+        if n >= DELTA_MIN_KEYS and _slow_link(device):
+            pending = deltas.dispatch_delta(keys, n, k, canonical)
+        handle = None
+        if resident:
+            from .resident import DeviceKmers  # resident imports this module
+
+            handle = DeviceKmers.from_count_outputs(keys, counts, n, k, canonical)
+            if (handle is not None and spss_ahead and canonical
+                    and side_code_route(n, device)):
+                handle.prefetch_sides()
+        uniq = deltas.fetch_delta(pending, n) if pending is not None else None
+        if uniq is None:
+            uniq = _download("keys", keys).astype(np.int64, copy=False)
+        counts_h = _counts_fetch(counts, value_max)
+        if handle is not None:
+            handle.with_endpoints(uniq)
+            handle.start_sides_download()
+        return (uniq, counts_h, handle) if resident else (uniq, counts_h)
 
 
 def device_unique(

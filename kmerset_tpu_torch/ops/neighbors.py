@@ -62,29 +62,36 @@ def candidates(Q: torch.Tensor, k: int, canonical: bool):
     return ncan, cand != ncan
 
 
-def tables(Q: torch.Tensor, ncan, same_all, found, idx):
+def tables(Q: torch.Tensor, ncan, same_all, found, idx, with_base: bool = False):
     """((rdeg, rnbr, rsame), (ldeg, lnbr, lsame)) of the k-mers Q from
     their candidates (`candidates`) and each candidate's membership:
     found (8, m) bool and idx (8, m) int64, the position of the member
-    (any value where not found).  A k-mer is never its own neighbour."""
+    (any value where not found).  A k-mer is never its own neighbour.
+    with_base appends to each side the extension base c of its first
+    neighbour (int32, 0 where deg == 0), as the reference's
+    tables_traced(with_base=True) does (kmerset_tpu/ops/neighbors.py:
+    63-65, 150-153): the side codes' link format carries it."""
     found = found & (ncan != Q)  # no self-loop
     out = []
     for side in range(2):
         deg = torch.zeros_like(Q, dtype=torch.int32)
         nbr = torch.zeros_like(Q)
         same = torch.zeros_like(Q, dtype=torch.bool)
+        base = torch.zeros_like(Q, dtype=torch.int32) if with_base else None
         for g in range(4 * side, 4 * side + 4):
             first = found[g] & (deg == 0)
             nbr = torch.where(first, idx[g], nbr)
             same = torch.where(first, same_all[g], same)
+            if with_base:
+                base = torch.where(first, g - 4 * side, base)
             deg += found[g]
-        out.append((deg, nbr, same))
+        out.append((deg, nbr, same, base) if with_base else (deg, nbr, same))
     return out[0], out[1]
 
 
 def side_tables(
     A: torch.Tensor, k: int, canonical: bool = True, lo: int = 0,
-    hi: int | None = None,
+    hi: int | None = None, with_base: bool = False,
 ):
     """((rdeg, rnbr, rsame), (ldeg, lnbr, lsame)) of the k-mers A[lo:hi]
     (all of A by default) in the graph of the sorted unique k-mers A
@@ -97,9 +104,10 @@ def side_tables(
     A k-mer is never its own neighbour.  Every k-mer's row depends only on
     the k-mer and A, so the rows of a range equal those rows of the whole;
     a range bounds the peak memory, which is ~8 int64 candidates and their
-    lookups per k-mer of the range."""
+    lookups per k-mer of the range.  with_base: as in `tables`."""
     A = A.to(torch.int64)
     Q = A[lo:hi]
     ncan, same_all = candidates(Q, k, canonical)
     found, idx = lookup_join(A, ncan.view(-1))
-    return tables(Q, ncan, same_all, found.view(8, -1), idx.view(8, -1))
+    return tables(Q, ncan, same_all, found.view(8, -1), idx.view(8, -1),
+                  with_base)

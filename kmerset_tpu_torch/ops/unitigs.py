@@ -13,6 +13,13 @@ string emission stay on the host (core/spss.py), which needs exactly
 these arrays.  The directed graph's side tables (device_side_tables_
 directed) are built on the device the same way, in query chunks, for
 the host's start and end tests.
+
+The side codes (dispatch_sides, device_unitig_sides: the reference's
+unitig_sides, :61-144) are the front-end's link format for a slow link:
+one byte per k-mer, which core/native.succ_from_sides turns back into
+the successor on the host.  Every entry point takes a resident handle
+(ops/resident.DeviceKmers, validated by its caller), whose tensor it uses
+in place of uploading A.
 """
 
 from __future__ import annotations
@@ -51,11 +58,11 @@ def _chunked_side_tables(A: torch.Tensor, k: int, query_chunk: int):
     return out[0], out[1]
 
 
-def _exits(rows, rdeg: torch.Tensor, ldeg: torch.Tensor):
-    """(succ (2m,) int64 with -1 at terminal exits, term_l, term_r (m,)
-    bool) of the m k-mers whose side tables are `rows`, with rdeg and
-    ldeg the degrees of the whole set (any integer dtype)."""
-    (rd, rnbr, rsame), (ld, lnbr, lsame) = rows
+def _terminals(rows, rdeg: torch.Tensor, ldeg: torch.Tensor):
+    """(term_l, term_r) (m,) bool of the m k-mers whose side tables are
+    `rows` (with or without the base), with rdeg and ldeg the degrees of
+    the whole set (any integer dtype)."""
+    (rd, rnbr, rsame, *_), (ld, lnbr, lsame, *_) = rows
     # Terminal tests (reference: lib/core/spss.h:276-313): a side is
     # terminal unless its unique mate's corresponding side also has a
     # unique back-edge.
@@ -64,7 +71,15 @@ def _exits(rows, rdeg: torch.Tensor, ldeg: torch.Tensor):
     del mate_r
     mate_l = torch.where(lsame, ldeg[lnbr], rdeg[lnbr])
     term_l = (ld != 1) | (mate_l != 1)
-    del mate_l
+    return term_l, term_r
+
+
+def _exits(rows, rdeg: torch.Tensor, ldeg: torch.Tensor):
+    """(succ (2m,) int64 with -1 at terminal exits, term_l, term_r (m,)
+    bool) of the m k-mers whose side tables are `rows`, with rdeg and
+    ldeg the degrees of the whole set (any integer dtype)."""
+    (rd, rnbr, rsame), (ld, lnbr, lsame) = rows
+    term_l, term_r = _terminals(rows, rdeg, ldeg)
     # After a same-side step the orientation flips (reference FindPath,
     # lib/core/spss.h:394-423).
     succ = torch.empty(2 * rd.shape[0], dtype=torch.int64, device=rd.device)
@@ -102,13 +117,7 @@ def bounded_unitig_succ(A: torch.Tensor, k: int, query_chunk: int):
     if query_chunk < 1:
         raise ValueError(f"query_chunk must be >= 1, got {query_chunk}")
     n = A.shape[0]
-    rdeg = torch.empty(n, dtype=torch.uint8, device=A.device)
-    ldeg = torch.empty_like(rdeg)
-    for lo in range(0, n, query_chunk):
-        hi = min(lo + query_chunk, n)
-        (rd, _, _), (ld, _, _) = side_tables(A, k, True, lo, hi)
-        rdeg[lo:hi] = rd
-        ldeg[lo:hi] = ld
+    rdeg, ldeg = _degrees(A, k, query_chunk)
     succ = np.empty(2 * n, dtype=np.int64)
     term_l = np.empty(n, dtype=bool)
     term_r = np.empty(n, dtype=bool)
@@ -116,7 +125,7 @@ def bounded_unitig_succ(A: torch.Tensor, k: int, query_chunk: int):
     for lo in range(0, n, query_chunk):
         hi = min(lo + query_chunk, n)
         rows = _exits(side_tables(A, k, True, lo, hi), rdeg, ldeg)
-        _sync(A.device)
+        backend.sync(A.device)
         t0 = time.perf_counter()
         for host, part in zip((succ[2 * lo : 2 * hi], term_l[lo:hi],
                                term_r[lo:hi]), rows):
@@ -125,34 +134,132 @@ def bounded_unitig_succ(A: torch.Tensor, k: int, query_chunk: int):
     return (succ, term_l, term_r, term_l & term_r), download_s
 
 
-def _sync(dev: torch.device) -> None:
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
+def _degrees(A: torch.Tensor, k: int, query_chunk: int):
+    """(rdeg, ldeg) (n,) uint8 of the canonical graph of A, built over
+    query ranges of `query_chunk` k-mers."""
+    n = A.shape[0]
+    rdeg = torch.empty(n, dtype=torch.uint8, device=A.device)
+    ldeg = torch.empty_like(rdeg)
+    for lo in range(0, n, query_chunk):
+        hi = min(lo + query_chunk, n)
+        (rd, _, _), (ld, _, _) = side_tables(A, k, True, lo, hi)
+        rdeg[lo:hi] = rd
+        ldeg[lo:hi] = ld
+    return rdeg, ldeg
+
+
+def _side_codes(rows, rdeg: torch.Tensor, ldeg: torch.Tensor) -> torch.Tensor:
+    """(m,) uint8 side codes of the m k-mers whose side tables with the
+    base are `rows` (reference unitig_sides, unitigs.py:68-94): bit 0
+    term_r, bits 1-2 base_r, bit 3 same_r, bit 4 term_l, bits 5-6 base_l,
+    bit 7 same_l, the base and same bits zeroed on terminal sides."""
+    (_, _, rsame, rbase), (_, _, lsame, lbase) = rows
+    term_l, term_r = _terminals(rows, rdeg, ldeg)
+    r = torch.where(term_r, 1, (rbase << 1) | (rsame.to(torch.int32) << 3))
+    left = torch.where(term_l, 16, (lbase << 5) | (lsame.to(torch.int32) << 7))
+    return (r | left).to(torch.uint8)
+
+
+def dispatch_sides(arr: torch.Tensor, k: int, query_chunk: Optional[int] = None):
+    """(n,) uint8 side codes of the sorted unique canonical k-mers `arr`
+    (int64) on its device, launched on the current stream and not waited
+    for (reference dispatch_sides, unitigs.py:102-110).  The side tables
+    are built in query chunks of `query_chunk` k-mers, by default
+    backend.front_end_plan's for the device's memory budget, as
+    device_unitig_succ's; below n the degrees of the whole set are built
+    first (a uint8 each per side), as in bounded_unitig_succ.  The result
+    is the same at every chunk size."""
+    n = arr.shape[0]
+    if query_chunk is None:
+        query_chunk = backend.front_end_plan(n, backend.memory_budget(arr.device))[1]
+    if query_chunk < 1:
+        raise ValueError(f"query_chunk must be >= 1, got {query_chunk}")
+    if query_chunk >= n:
+        rows = side_tables(arr, k, True, with_base=True)
+        return _side_codes(rows, rows[0][0], rows[1][0])
+    rdeg, ldeg = _degrees(arr, k, query_chunk)
+    out = torch.empty(n, dtype=torch.uint8, device=arr.device)
+    for lo in range(0, n, query_chunk):
+        hi = min(lo + query_chunk, n)
+        out[lo:hi] = _side_codes(side_tables(arr, k, True, lo, hi, with_base=True),
+                                 rdeg, ldeg)
+    return out
+
+
+def _set_on_device(A: np.ndarray, dev: torch.device, resident):
+    """(the set as an int64 tensor on dev, upload seconds): the resident
+    handle's tensor, or A uploaded.  A handle of another length or on
+    another device raises: the caller validates it first
+    (DeviceKmers.valid_for, DeviceKmers.on)."""
+    if resident is not None:
+        if resident.n != A.shape[0] or not resident.on(dev):
+            raise ValueError(
+                f"resident handle of {resident.n} k-mers on {resident.arr.device} "
+                f"for a set of {A.shape[0]} on {dev}"
+            )
+        return resident.graph_input(), 0.0
+    t0 = time.perf_counter()
+    At = torch.from_numpy(np.ascontiguousarray(A, dtype=np.int64)).to(dev)
+    backend.sync(dev)
+    return At, time.perf_counter() - t0
+
+
+def device_unitig_sides(A: np.ndarray, k: int, *, device, resident=None) -> np.ndarray:
+    """The (n,) uint8 side codes of the host array A (sorted unique
+    canonical int64 k-mers), built on `device`, on the host (reference
+    device_unitig_sides, unitigs.py:113-144): the 1 B/k-mer link format
+    that core/native.succ_from_sides rebuilds the successor from.  A
+    resident handle's prefetched side codes are collected as they are
+    (DeviceKmers.sides_host); else they are built on its tensor, or on A
+    uploaded.  Logs the upload, device and download seconds at debug
+    level."""
+    n = int(A.shape[0])
+    dev = resolve_device(device)
+    if resident is not None and resident.sides is not None:
+        _set_on_device(A, dev, resident)  # the same checks
+        t0 = time.perf_counter()
+        out = resident.sides_host()
+        logger.debug("unitigs: side codes prefetched, download wait %.4f s "
+                     "(%d k-mers, %d B)", time.perf_counter() - t0, n, out.nbytes)
+        return out
+    with backend.device_lock(dev):
+        At, up_s = _set_on_device(A, dev, resident)
+        t1 = time.perf_counter()
+        sides = dispatch_sides(At, k)
+        backend.sync(dev)
+        t2 = time.perf_counter()
+        out = sides.cpu().numpy()
+        t3 = time.perf_counter()
+    logger.debug(
+        "unitigs: side codes upload %.4f s, device %.4f s, download %.4f s "
+        "(%d k-mers, %d B, %s)", up_s, t2 - t1, t3 - t2, n, out.nbytes,
+        "resident" if resident is not None else "uploaded",
+    )
+    return out
 
 
 def device_unitig_succ(
     A: np.ndarray, k: int, *, device, query_chunk: Optional[int] = None,
+    resident=None,
 ) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
     """unitig_succ of the host array A (sorted unique canonical int64
     k-mers) on `device`, as host arrays: (succ int64, term_l, term_r,
     both bool).  The plan comes from the device's backend.memory_budget
     (backend.front_end_plan): up to backend.front_end_ceiling k-mers the
     whole-set arrays stay on the device (unitig_succ), above it only A
-    and the degrees do (bounded_unitig_succ).  Either way the set is
-    uploaded once and its side tables are built in query chunks of
-    `query_chunk` k-mers, by default what the budget leaves beside the
-    mode's whole-set arrays; the result is the same in every plan.  Logs
-    the upload, device and download times, the chunk count and the mode
-    at debug level."""
+    and the degrees do (bounded_unitig_succ).  Either way the set is on
+    the device once (the resident handle's tensor, else A uploaded) and
+    its side tables are built in query chunks of `query_chunk` k-mers, by
+    default what the budget leaves beside the mode's whole-set arrays;
+    the result is the same in every plan.  Logs the upload, device and
+    download times, the chunk count and the mode at debug level."""
     n = int(A.shape[0])
     dev = resolve_device(device)
     with backend.device_lock(dev):
         bounded, planned = backend.front_end_plan(n, backend.memory_budget(dev))
         if query_chunk is None:
             query_chunk = planned
-        t0 = time.perf_counter()
-        At = torch.from_numpy(np.ascontiguousarray(A, dtype=np.int64)).to(dev)
-        _sync(dev)
+        At, up_s = _set_on_device(A, dev, resident)
         t1 = time.perf_counter()
         if bounded:
             out, download_s = bounded_unitig_succ(At, k, query_chunk)
@@ -160,31 +267,34 @@ def device_unitig_succ(
             t2 = t3 - download_s
         else:
             out = unitig_succ(At, k, query_chunk)
-            _sync(dev)
+            backend.sync(dev)
             t2 = time.perf_counter()
             out = tuple(x.cpu().numpy() for x in out)
             t3 = time.perf_counter()
     logger.debug(
         "unitigs: device front-end upload %.4f s, device %.4f s, "
-        "download %.4f s (%d k-mers, %d query chunks, %s)", t1 - t0, t2 - t1,
+        "download %.4f s (%d k-mers, %d query chunks, %s%s)", up_s, t2 - t1,
         t3 - t2, n, -(-n // max(1, query_chunk)),
         "bounded" if bounded else "one shot",
+        ", resident" if resident is not None else "",
     )
     return out
 
 
 def device_side_tables_directed(
     A: np.ndarray, k: int, *, device, query_chunk: Optional[int] = None,
+    resident=None,
 ):
     """((outdeg, next), (indeg, prev)) of the directed graph of the host
     array A (sorted unique forward int64 k-mers), built on `device` as
     host int64 arrays: the device form of the reference's directed side
     tables (kmerset_tpu/core/spss.py:_side_tables with canonical=False,
     :122-167, whose device arm is ops/neighbors.device_side_tables).  The
-    set is uploaded once and its rows are built and downloaded in query
-    chunks of `query_chunk` k-mers, by default backend.front_end_plan's
-    for the device's memory budget; the result is the same at every chunk
-    size.  Logs the upload, device and download times at debug level."""
+    set is on the device once (the resident handle's tensor, else A
+    uploaded) and its rows are built and downloaded in query chunks of
+    `query_chunk` k-mers, by default backend.front_end_plan's for the
+    device's memory budget; the result is the same at every chunk size.
+    Logs the upload, device and download times at debug level."""
     if query_chunk is not None and query_chunk < 1:
         raise ValueError(f"query_chunk must be >= 1, got {query_chunk}")
     n = int(A.shape[0])
@@ -193,15 +303,13 @@ def device_side_tables_directed(
     with backend.device_lock(dev):
         if query_chunk is None:
             query_chunk = backend.front_end_plan(n, backend.memory_budget(dev))[1]
-        t0 = time.perf_counter()
-        At = torch.from_numpy(np.ascontiguousarray(A, dtype=np.int64)).to(dev)
-        _sync(dev)
+        At, up_s = _set_on_device(A, dev, resident)
         t1 = time.perf_counter()
         download_s = 0.0
         for lo in range(0, n, query_chunk):
             hi = min(lo + query_chunk, n)
             rows = side_tables(At, k, False, lo, hi)
-            _sync(dev)
+            backend.sync(dev)
             t = time.perf_counter()
             for host, (deg, nbr, _) in zip(out, rows):
                 host[0][lo:hi] = deg.cpu().numpy()
@@ -210,7 +318,8 @@ def device_side_tables_directed(
         t3 = time.perf_counter()
     logger.debug(
         "unitigs: device side tables upload %.4f s, device %.4f s, "
-        "download %.4f s (%d k-mers, %d query chunks, directed)", t1 - t0,
+        "download %.4f s (%d k-mers, %d query chunks, directed%s)", up_s,
         t3 - t1 - download_s, download_s, n, -(-n // query_chunk),
+        ", resident" if resident is not None else "",
     )
     return out

@@ -30,7 +30,9 @@ names = [m.name for m in pkgutil.walk_packages(
 for name in names:
     importlib.import_module(name)
 assert {"kmerset_tpu_torch.parallel.mesh",
-        "kmerset_tpu_torch.parallel.driver"} <= set(names), names
+        "kmerset_tpu_torch.parallel.driver",
+        "kmerset_tpu_torch.ops.deltas",
+        "kmerset_tpu_torch.ops.resident"} <= set(names), names
 from kmerset_tpu_torch.core.kmer_counter import KmerCounter
 c = KmerCounter.from_reads(3, ["ACGTTGCA", "AANAC"], True, device="cpu")
 # canonical 3-mers of ACGTTGCA: ACG CGT(=ACG) GTT(=AAC) TTG(=CAA) TGC(=GCA) GCA
@@ -53,6 +55,14 @@ for i in range(2):
         f.write(">g\n" + "".join("ACGT"[c] for c in mut) + "\n")
     kmerset_build.main(["--device", "cpu", "--k", "15", "--check", "--out", out, fa])
     sets.append(out)
+# The same build on a slow link (the side-code route, the count's
+# prefetch): the same dump.
+os.environ["KMERSET_TPU_LINK"] = "slow"
+slow_out = os.path.join(work, "slow.txt")
+kmerset_build.main(["--device", "cpu", "--k", "15", "--check", "--out", slow_out, fa])
+del os.environ["KMERSET_TPU_LINK"]
+with open(slow_out, "rb") as f, open(sets[-1], "rb") as g:
+    assert f.read() == g.read()
 # The same build on a mesh of two CPU shards: the same dump.
 mesh_out = os.path.join(work, "mesh.txt")
 kmerset_build.main(["--device", "cpu,cpu", "--k", "15", "--check", "--out",
@@ -98,9 +108,10 @@ print(len(names))
 
 def test_port_imports_and_counts_without_jax(tmp_path):
     """With jax and kmerset_tpu blocked: every module imports, parallel/
-    included, and the build and compress (each on one device and on a
-    mesh of two CPU shards; the build also as a process group of one),
-    decompress and stat CLIs run on the CPU."""
+    and the link formats' included, and the build (also on a slow link)
+    and compress (each on one device and on a mesh of two CPU shards; the
+    build also as a process group of one), decompress and stat CLIs run
+    on the CPU."""
     env = dict(os.environ)
     env.pop("KMERSET_TPU_FORCE_BACKEND", None)
     proc = subprocess.run(
@@ -215,3 +226,76 @@ def test_profile_tool_refuses_missing_cuda(tmp_path):
 
     with pytest.raises(RuntimeError, match="is_available"):
         profile_count.main([str(tmp_path / "none.fa")])
+
+
+def test_pool_timing_tool_refuses_missing_cuda(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    from kmerset_tpu_torch.tools import time_pool
+
+    with pytest.raises(RuntimeError, match="is_available"):
+        time_pool.main([str(tmp_path / "none.fa")])
+
+
+_POOL = r"""
+import json, os, sys
+sys.modules["jax"] = None
+sys.modules["kmerset_tpu"] = None
+mode = sys.argv[1]
+if mode == "present":
+    import types
+    sys.modules["kmerset_pool"] = types.ModuleType("kmerset_pool")
+import kmerset_tpu_torch
+if mode == "built":
+    # No checkout extension: the port compiles pool_alloc.c into its build
+    # directory, once.
+    from kmerset_tpu_torch import _nativebuild
+    native_dir, build = sys.argv[2], sys.argv[3]
+    _nativebuild._native_dir = lambda: native_dir
+    _nativebuild.BUILD_DIR = build
+    os.environ.pop("KMERSET_TPU_POOL")
+    kmerset_tpu_torch.pool = kmerset_tpu_torch._install_pool_allocator()
+    import numpy as np
+    a = np.ones(1 << 19)  # 4 MB: a pooled block
+    del a
+    b = np.ones(1 << 19)
+    again = kmerset_tpu_torch._install_pool_allocator()
+    assert again.how == "present", again
+p = kmerset_tpu_torch.pool
+print(json.dumps({"how": p.how, "path": p.path, "build_s": p.build_s,
+                  "stats": p.module.stats() if hasattr(p.module, "stats") else None}))
+"""
+
+
+def _pool(mode: str, *args, env=None) -> dict:
+    proc = subprocess.run(
+        [sys.executable, "-c", _POOL, mode, *args], capture_output=True,
+        text=True, cwd=ROOT, env=dict(os.environ, **(env or {})), timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr
+    return __import__("json").loads(proc.stdout.strip().splitlines()[-1])
+
+
+def test_pool_allocator_off_and_one_per_process():
+    """KMERSET_TPU_POOL=0 installs nothing; a kmerset_pool module already
+    imported (as the reference's import installs it) is kept, not joined
+    by a second pool."""
+    assert _pool("off", env={"KMERSET_TPU_POOL": "0"})["how"] == "off"
+    assert _pool("present", env={"KMERSET_TPU_POOL": "1"})["how"] == "present"
+
+
+def test_pool_allocator_built_without_the_checkout_extension(tmp_path):
+    """Where native/kmerset_pool<EXT_SUFFIX> is missing the port compiles
+    native/pool_alloc.c (no OpenMP) into its build directory and installs
+    it: numpy's large arrays then come from the pool (its stats count a
+    hit when a freed block is reused)."""
+    native_dir = tmp_path / "native"
+    native_dir.mkdir()
+    with open(os.path.join(ROOT, "native", "pool_alloc.c"), "rb") as f:
+        (native_dir / "pool_alloc.c").write_bytes(f.read())
+    build = tmp_path / "build"
+    got = _pool("built", str(native_dir), str(build), env={"KMERSET_TPU_POOL": "0"})
+    if got["how"] == "unavailable":
+        pytest.skip("pool_alloc.c does not compile here (no Python.h?)")
+    assert got["how"] == "built" and got["path"].startswith(str(build))
+    assert got["build_s"] is not None and got["stats"]["pool_hits"] >= 1
