@@ -94,8 +94,24 @@ codes against their plain versions on the CPU copy of the input, the
 successor rebuilt from the card's side codes against the card's
 front-end, and run D's handle filter against the host filter, prints
 each download's bytes and seconds, the decode, the succ rebuild, peak
-device memory and the pooling allocator's state.  Inputs are made from
-fixed seeds under build/chip_smoke/.
+device memory and the pooling allocator's state.  Phase 22 runs the
+multi-set CLIs at k = 19 and 23 (runs M19 and M23, on run M's strains)
+against the reference's, then kmerset-build --check at genome scale at
+the card's natural memory budget, nothing forced: G23 (a 2^28-base
+genome as 10 kb reads, k = 23) and R19 (8x coverage in 2 kb reads of
+both strands of a 2^27-base genome, k = 19, cutoff 2, above the count's
+one-shot ceiling).  Each run's count, front-end and check plans must be
+those that window_ceiling and front_end_plan give at a budget
+memory_budget returned during the run (backend.count_plan's and the
+front-end's decisions), with as many chunks merged as planned; R19's
+count must take more than one chunk, and the dump's set, decoded on the card, must equal by
+torch.equal a plain count on the card (groups of whole reads through
+the plain B2 and torch.unique), hold each k-mer once and give
+kmerset-stat's size and hash; it prints the phase times, the host
+merges, the front-end's download, peak device bytes per window and per
+k-mer beside the memory constants, and the host's peak RSS.  The
+reference's host CLI is not run at that size here.  Inputs are made
+from fixed seeds under build/chip_smoke/.
 
 Each phase prints one line.  The line before the last is a JSON summary of
 the kernels; the last line is {"ok": true, "device": {...}}.  Any failure
@@ -115,10 +131,12 @@ import json
 import logging
 import os
 import re
+import resource
 import shutil
 import statistics
 import subprocess
 import sys
+import threading
 import time
 from typing import Tuple
 
@@ -208,8 +226,12 @@ def environment(torch) -> str:
            f"numpy {np.__version__}, CUDA {torch.version.cuda}, device "
            f"{torch.cuda.get_device_name(0)}")
     print(smi, flush=True)
+    with open("/proc/meminfo") as f:
+        mem_total = next(l.split(":")[1].strip() for l in f
+                         if l.startswith("MemTotal:"))
     say(0, f"nvcc: {[l for l in nvcc if 'release' in l][-1]}; "
-           f"gcc: {gcc[0] if gcc else 'not found'}")
+           f"gcc: {gcc[0] if gcc else 'not found'}; host MemTotal {mem_total}, "
+           f"{os.cpu_count()} CPUs")
     t0 = time.perf_counter()
     loaded = backend.host_library_loaded()
     load_s = time.perf_counter() - t0
@@ -830,12 +852,21 @@ _LUT = np.full(256, 255, dtype=np.uint8)
 _LUT[np.frombuffer(b"ACGT", dtype=np.uint8)] = np.arange(4, dtype=np.uint8)
 
 
+def _sequence_lines(path: str) -> list:
+    """The sequence lines of this script's own FASTA files and dumps (one
+    sequence line per record here)."""
+    with open(path, "rb") as f:
+        return [l for l in f.read().split(b"\n") if l and l[:1] != b">"]
+
+
 def fasta_codes(path: str) -> Tuple[np.ndarray, np.ndarray]:
     """(codes uint8, fragment offsets int64) of this script's own FASTA
     files and dumps: every sequence line is split at each base other than
-    ACGT, as the FASTA parser does (one sequence line per record here)."""
-    with open(path, "rb") as f:
-        lines = [l for l in f.read().split(b"\n") if l and l[:1] != b">"]
+    ACGT, as the FASTA parser does."""
+    return _codes_of_lines(_sequence_lines(path))
+
+
+def _codes_of_lines(lines) -> Tuple[np.ndarray, np.ndarray]:
     arr = _LUT[np.frombuffer(b"N".join(lines), dtype=np.uint8)]
     valid = arr != 255
     cum = np.cumsum(valid)
@@ -992,8 +1023,7 @@ def check_out_of_core(torch, fasta_a: str, dump_c: str, sizes: dict) -> dict:
            f"31); the front-end's one-shot mode up to {ceiling} k-mers "
            f"(there in query chunks of "
            f"{backend.front_end_plan(ceiling, budget)[1]}), the bounded mode "
-           "above.  An input above the count's ceiling (~1.5 Gbases) is not "
-           "run here")
+           "above (phase 22 runs both ceilings at the natural budget)")
     return sets
 
 
@@ -2212,6 +2242,390 @@ def check_link(torch, plan, refs, runs, S: np.ndarray, fasta_d: str) -> list:
     return out
 
 
+# Phase 22: the build at genome scale at the card's natural memory budget.
+G23_BASES = 1 << 28  # the scale of GRCh38 chr1 (248,956,422 bp)
+R19_BASES = 1 << 27  # about a Drosophila melanogaster genome
+R19_COVERAGE = 8.0
+PLAIN_GROUP_BASES = 1 << 27  # bases per group of reads of the plain check
+
+_COUNT_PLAN = re.compile(r"(count|decode): (\d+) windows in (\d+) chunk\(s\) of "
+                         r"at most (\d+) \(ceiling (\d+), budget (\d+)\)")
+_FRONT_PLAN = re.compile(r"unitigs: (one-shot|bounded), query chunk (\d+) of "
+                         r"(\d+) k-mers \(ceiling (\d+), budget (\d+)\)")
+_MERGED = re.compile(r"(count|decode): merged (\d+) chunk\(s\) on the host in "
+                     r"([\d.]+) s \((\d+) keys\)")
+_FRONT_DOWN = re.compile(r"unitigs: device front-end upload [\d.]+ s, device "
+                         r"[\d.]+ s, download ([\d.]+) s of (\d+) B \(.*\)")
+
+
+class _PhasePeaks(logging.Handler):
+    """Device memory at the CLI's phase lines: at each line of MARKS, the
+    peak allocated since the last mark and what is allocated now; the
+    peak is reset there."""
+
+    MARKS = {"constructed kmer_counter": "count", "constructed kmer_set": "filter",
+             "constructed kmer_set_compact": "spss",
+             "kmer_set_compact -> KmerSet: ok": "check"}
+
+    def __init__(self, torch):
+        super().__init__(logging.DEBUG)
+        self.torch = torch
+        self.peak, self.held = {}, {}
+
+    def emit(self, record):
+        name = self.MARKS.get(record.getMessage())
+        if name:
+            self.peak[name] = self.torch.cuda.max_memory_allocated()
+            self.held[name] = self.torch.cuda.memory_allocated()
+            self.torch.cuda.reset_peak_memory_stats()
+
+
+def _max_rss_gib() -> float:
+    """This process's peak resident set so far (getrusage's ru_maxrss, in
+    KiB on Linux)."""
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / (1 << 20)
+
+
+class _RssSampler(threading.Thread):
+    """The largest resident set of this process seen every 50 ms
+    (/proc/self/statm) while it runs: a run's own peak, where ru_maxrss
+    holds the whole process's.  peak is None where statm is unreadable."""
+
+    def __init__(self):
+        super().__init__(daemon=True)
+        self.peak = None
+        self.done = threading.Event()
+        self.page = os.sysconf("SC_PAGE_SIZE")
+
+    def run(self):
+        while True:
+            try:
+                with open("/proc/self/statm") as f:
+                    rss = int(f.read().split()[1]) * self.page
+            except (OSError, ValueError, IndexError):
+                return
+            self.peak = max(self.peak or 0, rss)
+            if self.done.wait(0.05):
+                return
+
+
+def _count_plan(tag: str, k: int, plan, budgets, merges) -> str:
+    """Holds a count or decode plan line (backend.count_plan's decision)
+    against window_ceiling at its budget, which must be one that
+    memory_budget returned in the run, and against what ran: a chunked
+    plan's host merge of as many chunks, a one-shot plan's none."""
+    from kmerset_tpu_torch.ops import backend
+
+    what, w, c, x, ceiling, budget = plan[0], *map(int, plan[1:])
+    want_c, want_x = (1, w) if w <= ceiling else (-(-w // ceiling), ceiling)
+    ran = [int(m[1]) for m in merges if m[0] == what] or [1]
+    if budget not in budgets or ceiling != backend.window_ceiling(k, budget) \
+            or (c, x) != (want_c, want_x) or ran != [c]:
+        raise AssertionError(f"{tag}: {what} plan {plan} is not the one of "
+                             f"its budget (budgets seen {budgets}) or not "
+                             f"what ran ({ran} chunk(s) merged)")
+    return (f"{what} {w} windows in {c} chunk(s) of at most {x} (ceiling "
+            f"{ceiling}, budget {budget} B = {budget / (1 << 30):.2f} GiB)")
+
+
+def _front_plan(tag: str, n: int, plan, budgets) -> str:
+    from kmerset_tpu_torch.ops import backend
+
+    mode, q, m, ceiling, budget = plan[0], *map(int, plan[1:])
+    if budget not in budgets or m != n or ceiling != backend.front_end_ceiling(budget) \
+            or backend.front_end_plan(n, budget) != (mode == "bounded", q):
+        raise AssertionError(f"{tag}: front-end plan {plan} is not the one of "
+                             f"its budget (budgets seen {budgets})")
+    return (f"front-end {mode}, query chunk {q} of {n} k-mers ({-(-n // q)} "
+            f"chunk(s); ceiling {ceiling}, budget {budget} B = "
+            f"{budget / (1 << 30):.2f} GiB)")
+
+
+def _line_groups(lines, group_bases: int):
+    """(codes, offsets) of consecutive groups of whole records of about
+    group_bases bases each."""
+    lo = size = 0
+    for i, line in enumerate(lines):
+        size += len(line)
+        if size >= group_bases or i == len(lines) - 1:
+            yield _codes_of_lines(lines[lo:i + 1])
+            lo, size = i + 1, 0
+
+
+def plain_set(torch, fasta: str, k: int, cutoff: int):
+    """The counted set of the FASTA at k and the cutoff, on the card by
+    plain PyTorch and independent of the port's plan: groups of whole
+    reads of PLAIN_GROUP_BASES bases, each packed (count.pack_codes),
+    keyed by the plain B2 (pack.canonical_windows_plain), its windows
+    that cross a fragment boundary dropped, counted by torch.unique;
+    the groups' counts merged by torch.unique again.  Returns (the sorted
+    keys at the cutoff, the number cut, groups)."""
+    from kmerset_tpu_torch.ops import pack
+    from kmerset_tpu_torch.ops.count import pack_codes
+
+    U = C = None
+    groups = 0
+    for codes, offsets in _line_groups(_sequence_lines(fasta), PLAIN_GROUP_BASES):
+        L = codes.size
+        ct = torch.from_numpy(codes).to(DEVICE)
+        keys = pack.canonical_windows_plain(pack_codes(ct), L, k, True)
+        lengths = torch.from_numpy(np.diff(offsets)).to(DEVICE)
+        frag = torch.repeat_interleave(
+            torch.arange(lengths.numel(), device=DEVICE), lengths)
+        u, c = torch.unique(keys[frag[: L - k + 1] == frag[k - 1:]],
+                            return_counts=True)
+        del ct, keys, frag
+        if U is not None:
+            u, inv = torch.unique(torch.cat([U, u]), return_inverse=True)
+            c = torch.zeros_like(u).scatter_add_(0, inv, torch.cat([C, c]))
+        U, C = u, c
+        groups += 1
+    keep = C >= cutoff
+    return U[keep], int((~keep).sum()), groups
+
+
+def genome_run(torch, tag: str, fasta: str, k: int, cutoff: int,
+               chunked: bool) -> dict:
+    """kmerset-build --check at the card's natural budget, nothing forced,
+    through the CLI's main as main_path_run; its plans held against the
+    budgets memory_budget returned (a spy that changes nothing); then its
+    dump against plain_set on the card, and kmerset-stat's size and hash
+    of the dump.  chunked: the count must run in more than one chunk."""
+    from kmerset_tpu_torch.cli import kmerset_build, kmerset_stat
+    from kmerset_tpu_torch.core.kmer_set_compact import KmerSetCompact
+    from kmerset_tpu_torch.ops import backend, compact, pack
+
+    out = os.path.join(WORK, f"{tag.split()[-1]}_port.txt")
+    budgets = []
+    budget_of = backend.memory_budget
+
+    def spy(device):
+        budgets.append(budget_of(device))
+        return budgets[-1]
+
+    torch.cuda.empty_cache()  # a user's build starts in a process of its own
+    free, total = torch.cuda.mem_get_info()
+    cap, peaks = _Capture(), _PhasePeaks(torch)
+    log = logging.getLogger(CLI_LOGGER)
+    log.addHandler(cap)
+    log.addHandler(peaks)
+    backend.memory_budget = spy
+    pack.launches = pack.launches_pair = compact.launches = 0
+    held0 = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    rss_before = _max_rss_gib()
+    sampler = _RssSampler()
+    sampler.start()
+    t0 = time.time()
+    try:
+        kmerset_build.main(["--device", DEVICE, "--k", str(k), "--cutoff",
+                            str(cutoff), "--check", "--out", out, fasta])
+    finally:
+        backend.memory_budget = budget_of
+        log.removeHandler(cap)
+        log.removeHandler(peaks)
+        sampler.done.set()
+        sampler.join()
+    t_end = time.time()
+    launches = {"B1": pack.launches, "B2": pack.launches_pair,
+                "B3": compact.launches}
+    rss = _max_rss_gib()
+    msgs = [m for _, m in cap.records]
+    at = {m: t for t, m in cap.records}
+    if "kmer_set_compact -> KmerSet: ok" not in msgs:
+        raise AssertionError(f"{tag}: the port's --check did not log ok")
+    for name in ("B2", "B3"):
+        if launches[name] <= 0:
+            raise AssertionError(f"{tag}: kernel {name} was not launched")
+    mine = _logged_values(msgs)
+    n = mine["kmer_set.Size()"]
+    plans = [m.groups() for m in map(_COUNT_PLAN.fullmatch, msgs) if m]
+    fronts = [m.groups() for m in map(_FRONT_PLAN.fullmatch, msgs) if m]
+    if [p[0] for p in plans] != ["count", "decode"] or len(fronts) != 1:
+        raise AssertionError(f"{tag}: plan lines {plans} {fronts}")
+    merges = [m.groups() for m in map(_MERGED.fullmatch, msgs) if m]
+    count_line = _count_plan(tag, k, plans[0], budgets, merges)
+    c_chunks, c_chunk = int(plans[0][2]), int(plans[0][3])
+    if chunked and c_chunks < 2:
+        raise AssertionError(f"{tag}: the count ran in one shot: {count_line}")
+    front_line = _front_plan(tag, n, fronts[0], budgets)
+    decode_line = _count_plan(tag, k, plans[1], budgets, merges)
+    front_msg = next(m for m in msgs if _FRONT_DOWN.fullmatch(m))
+    resident = front_msg.endswith("resident)")
+    # Distinct keys of the first shot (int64 at k > 15): its run heads.
+    n_heads = next(int(m.group(1)) for m in map(_LINK_LINES["keys"].fullmatch, msgs)
+                   if m) // 8
+    say(tag, f"plans at the natural budget (mem_get_info free {free} of {total} "
+             f"B before the run): {count_line}; {front_line}, "
+             + ("on the count's resident set" if resident else
+                "on the host array uploaded (the chunked count keeps no "
+                "resident set, as the reference's)")
+             + f"; check {decode_line}: each the plan of window_ceiling / "
+             f"front_end_plan at a budget memory_budget returned")
+
+    # Against the plain version on the card.
+    t1 = time.perf_counter()
+    plain, plain_cut, groups = plain_set(torch, fasta, k, cutoff)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t1
+    comp = KmerSetCompact.load(k, out, device=DEVICE)
+    decoded = torch.from_numpy(comp.kmers(True)).to(DEVICE)
+    if not torch.equal(decoded, plain):
+        raise AssertionError(f"{tag}: the dump's set ({decoded.numel()}) is not "
+                             f"the plain set ({plain.numel()})")
+    lengths = np.diff(comp.spss.offsets)
+    if lengths.min() < k or int((lengths - k + 1).sum()) != plain.numel():
+        raise AssertionError(f"{tag}: the strings hold {int((lengths - k + 1).sum())} "
+                             f"windows for {plain.numel()} k-mers")
+    h = int(np.bitwise_xor.reduce(plain.cpu().numpy())) & ((1 << 64) - 1)
+    stat_out, _, stat_s = _capture_run(kmerset_stat, ["--device", DEVICE, "--k",
+                                                      str(k), out])
+    _, _, size, hash_ = stat_out.split("\t")
+    if (int(size), int(hash_)) != (plain.numel(), h) or \
+            (n, mine["kmer_set.Hash()"], mine["cutoff_count"]) != (plain.numel(), h, plain_cut):
+        raise AssertionError(f"{tag}: stat {size} {hash_.strip()}, logged {mine}; "
+                             f"plain {plain.numel()} {h}, {plain_cut} cut")
+    del decoded, plain, comp
+    say(tag, f"the dump's set, decoded on the card, torch.equal to the plain "
+             f"set on the card ({groups} groups of whole reads: plain B2, "
+             f"torch.unique, merged; {plain_s:.3f} s); {n} k-mers, each once "
+             f"in {lengths.size} strings (sum of len - k + 1 = the size); "
+             f"--check ok; kmerset-stat size {size}, hash {hash_.strip()} = the "
+             f"plain set's ({stat_s:.3f} s); cutoff_count {plain_cut} = the "
+             f"plain count's; {os.path.getsize(out)} bytes")
+
+    times = {
+        "count_s": at["constructed kmer_counter"] - at["constructing kmer_counter"],
+        "filter_s": at["constructed kmer_set"] - at["constructing kmer_set"],
+        "spss_s": at["constructed kmer_set_compact"]
+        - at["constructing kmer_set_compact"],
+        "check_s": at["kmer_set_compact -> KmerSet: ok"]
+        - at["constructed kmer_set_compact"],
+        "total_s": t_end - t0,
+    }
+    spss = _phase_times(msgs)
+    down_s, down_b = map(float, _FRONT_DOWN.fullmatch(front_msg).groups())
+    say(tag, "wall s: " + ", ".join(f"{a} {v:.3f}" for a, v in times.items())
+        + "; SPSS split, s: " + ", ".join(f"{a} {v:.4f}" for a, v in spss.items())
+        + f"; front-end download {int(down_b)} B in {down_s:.4f} s"
+        + "".join(f"; {w} host merge of {c} chunks {float(s):.4f} s ({kk} keys)"
+                  for w, c, s, kk in merges))
+    q = int(fronts[0][1])
+    count_b = peaks.peak["count"] - held0
+    spss_b = peaks.peak["spss"] - peaks.held["filter"]
+    check_b = peaks.peak["check"] - peaks.held["spss"]
+    dec_w = int(plans[1][1])
+    whole = backend.BOUNDED_BYTES_PER_KMER if fronts[0][0] == "bounded" \
+        else backend.FRONT_END_BYTES_PER_KMER
+    planned = whole * n + q * backend.FRONT_END_BYTES_PER_QUERY
+    peak_gib = max(peaks.peak.values()) / (1 << 30)
+    say(tag, f"peak device memory {peak_gib:.3f} GiB; count {count_b / (1 << 30):.3f} "
+             f"GiB above the run's start, {count_b / c_chunk:.2f} B per window "
+             f"of its largest shot (ceiling uses "
+             f"{backend.count_bytes_per_window(k)}); SPSS build "
+             f"{spss_b / (1 << 30):.3f} GiB above what the count left "
+             f"({peaks.held['filter'] / (1 << 30):.3f} GiB held), "
+             f"{spss_b / n:.2f} B per k-mer, within its plan's {planned / (1 << 30):.3f} "
+             f"GiB ({fronts[0][0]}: {whole} B per k-mer and {backend.FRONT_END_BYTES_PER_QUERY} "
+             f"per queried k-mer): past {whole} B per k-mer, "
+             f"{(spss_b - whole * n) / q:.2f} B per queried k-mer; check "
+             f"{check_b / max(1, dec_w):.2f} B per window; host peak RSS "
+             + (f"{sampler.peak / (1 << 30):.3f} GiB (sampled every 50 ms), "
+                if sampler.peak else "not sampled, ")
+             + f"the process's ru_maxrss {rss_before:.3f} GiB before the run, "
+             f"{rss:.3f} after; launches {launches}")
+    if count_b / c_chunk > backend.count_bytes_per_window(k):
+        raise AssertionError(f"{tag}: {count_b / c_chunk:.2f} B/window above the "
+                             "ceiling's constant")
+    if check_b / max(1, dec_w) > backend.count_bytes_per_window(k):
+        raise AssertionError(f"{tag}: the check's decode took {check_b / dec_w:.2f} "
+                             "B/window, above the ceiling's constant")
+    if spss_b > planned:
+        raise AssertionError(f"{tag}: the SPSS build took {spss_b} B above its "
+                             "plan's whole-set arrays and query chunk")
+    return {"launches": launches, "shot": (c_chunk, min(1.0, n_heads / c_chunk))}
+
+
+def check_kernels_at_scale(torch, shapes) -> None:
+    """B2 and B3 against their plain versions on the card at the shapes
+    phase 22's counts launched them (shapes: (tag, k, windows) of each
+    run's largest shot), each timed beside its bound: B2 canonical with
+    a `valid` mask over random codes; B3 over an int64 and an int32 lane
+    (the count's keys and positions) with random keep at the share of run
+    heads the run had.  These launches compare: they stay out of the
+    kernels line."""
+    from kmerset_tpu_torch.ops import compact, pack
+
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 23)
+    rng = np.random.default_rng(SEED + 23)
+    for tag, k, n, frac in shapes:
+        L, packed = _packed_input(rng, k, n)
+        valid = torch.rand(n, generator=gen, device=DEVICE) > 0.01
+        got = pack.canonical_windows(packed, L, k, True, valid)
+        want, plain_s = _timed(torch, lambda: pack.canonical_windows_plain(
+            packed, L, k, True, valid))
+        if not torch.equal(got, want):
+            raise AssertionError(f"B2 k={k} n={n} differs from its plain version")
+        del got, want
+        ms = time_ms(lambda: pack.canonical_windows(packed, L, k, True, valid), 3, 2)
+        n_bytes = packed.shape[0] + n * 9
+        bound, by = bound_ms(n_bytes, PACK_OPS_PER_WINDOW * n)
+        say(tag, f"B2 k={k} at {n} windows equal to its plain version: kernel "
+                 f"{ms:.4f} ms, bound {bound:.4f} ms ({by}), {100 * bound / ms:.1f}% "
+                 f"of bound; plain {plain_s * 1e3:.1f} ms")
+        del packed, valid
+        keys = torch.randint(0, 1 << 62, (n,), generator=gen, device=DEVICE)
+        lanes = [keys, torch.arange(n, dtype=torch.int32, device=DEVICE)]
+        keep = torch.rand(n, generator=gen, device=DEVICE) < frac
+        (gk, gp), n_sel = compact.compact_select(lanes, keep)
+        m = int(n_sel)
+        (wk, wp), plain_s = _timed(torch, lambda: [lane[keep] for lane in lanes])
+        if m != wk.numel() or not (torch.equal(gk[:m], wk) and torch.equal(gp[:m], wp)):
+            raise AssertionError(f"B3 n={n} differs from its plain version")
+        del gk, gp, wk, wp
+        ms = time_ms(lambda: compact.compact_select(lanes, keep), 3, 2)
+        n_bytes = n * 13 + m * 12
+        bound, by = bound_ms(n_bytes, n * (COMPACT_OPS_PER_ELEMENT
+                                           + 2 * COMPACT_OPS_PER_LANE_ELEMENT))
+        say(tag, f"B3 int64+int32 lanes at {n} elements, {m} kept, equal to "
+                 f"lane[keep]: kernel {ms:.4f} ms, bound {bound:.4f} ms ({by}), "
+                 f"{100 * bound / ms:.1f}% of bound; lane[keep] per lane "
+                 f"{plain_s * 1e3:.1f} ms (one call, with its sync)")
+        del keys, lanes, keep
+        torch.cuda.empty_cache()
+
+
+def check_genome_scale(torch, strains) -> list:
+    """Phase 22: runs M19 and M23 (the multi-set CLIs at k = 19 and 23 on
+    the strains of runs M and M31), then G23 (a 2^28-base genome as 10 kb
+    reads, k = 23) and R19 (8x coverage in 2 kb reads of both strands of
+    a 2^27-base genome, k = 19, cutoff 2) through kmerset-build at the
+    card's natural memory budget (genome_run)."""
+    t22 = time.perf_counter()
+    runs = [run_m(torch, "22 run M19", 19, strains),
+            run_m(torch, "22 run M23", 23, strains)]
+    rng = np.random.default_rng(SEED + 22)
+    fasta = os.path.join(WORK, "g23.fa")
+    t0 = time.perf_counter()
+    write_genome_fasta(fasta, rng, G23_BASES)
+    say("22 G23", f"a {G23_BASES}-base genome as 10 kb reads written in "
+                  f"{time.perf_counter() - t0:.1f} s ({os.path.getsize(fasta)} B)")
+    runs.append(genome_run(torch, "22 G23", fasta, 23, 1, chunked=False))
+    os.remove(fasta)
+    fasta = os.path.join(WORK, "r19.fa")
+    t0 = time.perf_counter()
+    write_reads_fasta(fasta, rng, R19_BASES, R19_COVERAGE)
+    say("22 R19", f"{R19_COVERAGE:g}x coverage of a {R19_BASES}-base genome in "
+                  f"2 kb reads written in {time.perf_counter() - t0:.1f} s "
+                  f"({os.path.getsize(fasta)} B)")
+    runs.append(genome_run(torch, "22 R19", fasta, 19, 2, chunked=True))
+    os.remove(fasta)
+    check_kernels_at_scale(torch, [("22 G23", 23, *runs[2]["shot"]),
+                                   ("22 R19", 19, *runs[3]["shot"])])
+    say("22", f"phase 22 took {time.perf_counter() - t22:.1f} s")
+    return runs
+
+
 def main() -> int:
     try:
         import torch
@@ -2351,6 +2765,7 @@ def main() -> int:
                               fasta_d, sets["run A"],
                               os.path.join(WORK, f"{plan[0][0]}_port.txt")))
     runs += check_link(torch, plan, refs, runs, sets["run A"], fasta_d)
+    runs += check_genome_scale(torch, strains)
 
     for kern in kernels:
         name = kern["name"].split()[0]
@@ -2364,8 +2779,9 @@ def main() -> int:
     if ref_mods:
         raise AssertionError(f"the JAX package was imported: {ref_mods}")
     say(8, "launch counts over runs A, C, D, E, F, M and M31, their mesh "
-           "runs, the process-group runs' ranks, phase 20's library calls "
-           "and phase 21's slow-link runs: " + ", ".join(
+           "runs, the process-group runs' ranks, phase 20's library calls, "
+           "phase 21's slow-link runs and phase 22's runs M19, M23, G23 and "
+           "R19: " + ", ".join(
         f"{k['name'].split()[0]} {k['launches']}" for k in kernels)
         + "; neither jax nor kmerset_tpu in sys.modules; "
         f"{time.perf_counter() - t_start:.1f} s")

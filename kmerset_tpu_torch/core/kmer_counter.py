@@ -157,10 +157,10 @@ class KmerCounter:
             uniq, counts = mesh_driver.mesh_count(
                 codes, offsets, k, canonical, mesh
             )
-        elif n_windows > backend.window_ceiling(k, backend.memory_budget(device)):
+        elif (chunk := backend.count_plan("count", n_windows, k, device)) < n_windows:
             # Raw merged counts; saturated below, after the merge.
             uniq, counts = backend.device_count_chunked(
-                codes, offsets, k, canonical, device=device
+                codes, offsets, k, canonical, device=device, chunk_windows=chunk
             )
         else:
             uniq, counts, handle = backend.device_count(

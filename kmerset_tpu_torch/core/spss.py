@@ -1033,9 +1033,11 @@ def decode_unique_kmers(
         return mesh_driver.mesh_count(
             spss.codes, spss.offsets, k, canonical, mesh, need_counts=False
         )[0]
-    if n_windows > backend.window_ceiling(k, backend.memory_budget(device)):
+    chunk = backend.count_plan("decode", n_windows, k, device)
+    if chunk < n_windows:
         return backend.device_unique_chunked(
-            spss.codes, spss.offsets, k, canonical, device=device
+            spss.codes, spss.offsets, k, canonical, device=device,
+            chunk_windows=chunk,
         )
     return backend.device_unique(
         spss.codes, spss.offsets, k, canonical, device=device

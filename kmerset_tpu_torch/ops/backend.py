@@ -16,7 +16,10 @@ MAX_DEVICE_WINDOWS, which was sized for a 16 GB TPU.  Above it the count
 and the decode run in halo chunks of at most that many windows and merge
 the sorted runs on the host: the port's copies of the reference's
 _merge_count_pair and _merge_cascade (backend.py:522-567), and its own
-keys-only _merge_key_pair.
+keys-only _merge_key_pair.  count_plan makes the one-shot-or-chunked
+decision of a count or decode from one read of the budget and logs it at
+debug level (windows, chunks, ceiling and budget); the chunked paths log
+the seconds of their host merge.
 
 The link formats (reference backend.py:141-200, 694-820): `_slow_link`
 says whether the host-device link is slow (KMERSET_TPU_LINK=fast|slow, or
@@ -277,6 +280,22 @@ def _counts_fetch(counts, value_max: int) -> np.ndarray:
     return _download("counts", counts).astype(np.int64)
 
 
+def count_plan(what: str, n_windows: int, k: int, device) -> int:
+    """The chunk size of a count or decode (`what`) of n_windows windows
+    at k on `device`: all of them in one shot up to the one-shot ceiling
+    of the budget read now, else halo chunks of the ceiling.  Logs "W
+    windows in C chunk(s) of at most X (ceiling Y, budget B)" at debug
+    level.  The caller runs one shot where the size is n_windows, else
+    the chunked path with chunk_windows set to it."""
+    budget = memory_budget(device)
+    ceiling = window_ceiling(k, budget)
+    chunk = n_windows if n_windows <= ceiling else ceiling
+    logger.debug("%s: %d windows in %d chunk(s) of at most %d (ceiling %d, "
+                 "budget %d)", what, n_windows, -(-n_windows // max(1, chunk)),
+                 chunk, ceiling, budget)
+    return chunk
+
+
 def device_count(
     codes: np.ndarray, offsets: np.ndarray, k: int, canonical: bool, *,
     device, value_max: int = 0, resident: bool = False,
@@ -377,14 +396,15 @@ def device_count_chunked(
     through the one-shot count, and the sorted (keys, raw int64 counts)
     runs merged on the host.  Counts stay raw: the caller saturates them
     after the merge, or cross-chunk sums would saturate early
-    (reference backend.py:705-710)."""
+    (reference backend.py:705-710).  chunk_windows: by default the
+    one-shot ceiling of the budget now (count_plan's chunk size)."""
     if codes.shape[0] - (k - 1) <= 0:
         return np.empty(0, np.int64), np.empty(0, np.int64)
     parts = [
         device_count(c, o, k, canonical, device=device)
         for c, o in _chunks(codes, offsets, k, device, chunk_windows)
     ]
-    return _merge_cascade(parts, _merge_count_pair)
+    return _merge_logged("count", parts, _merge_count_pair)
 
 
 def _merge_count_pair(ak, ac, bk, bc):
@@ -424,6 +444,17 @@ def _merge_cascade(parts: list, merge_pair):
     return parts[0]
 
 
+def _merge_logged(what: str, parts: list, merge_pair):
+    """_merge_cascade of the chunks' runs, its seconds and the merged key
+    count logged at debug level."""
+    t0 = time.perf_counter()
+    out = _merge_cascade(parts, merge_pair)
+    logger.debug("%s: merged %d chunk(s) on the host in %.4f s (%d keys)",
+                 what, len(parts), time.perf_counter() - t0,
+                 (out[0] if isinstance(out, tuple) else out).shape[0])
+    return out
+
+
 def _merge_key_pair(ak: np.ndarray, bk: np.ndarray) -> np.ndarray:
     """Sorted union of two sorted-unique key runs: the native one-pass
     merge, else the reference's sorted_unique of the concatenation.  The
@@ -447,4 +478,4 @@ def device_unique_chunked(
         device_unique(c, o, k, canonical, device=device)
         for c, o in _chunks(codes, offsets, k, device, chunk_windows)
     ]
-    return _merge_cascade(parts, _merge_key_pair)
+    return _merge_logged("decode", parts, _merge_key_pair)

@@ -251,31 +251,38 @@ def device_unitig_succ(
     the device once (the resident handle's tensor, else A uploaded) and
     its side tables are built in query chunks of `query_chunk` k-mers, by
     default what the budget leaves beside the mode's whole-set arrays;
-    the result is the same in every plan.  Logs the upload, device and
-    download times, the chunk count and the mode at debug level."""
+    the result is the same in every plan.  Logs the plan (mode, query
+    chunk, ceiling and budget), then the upload, device and download
+    times, the chunk count and the mode at debug level."""
     n = int(A.shape[0])
     dev = resolve_device(device)
     with backend.device_lock(dev):
-        bounded, planned = backend.front_end_plan(n, backend.memory_budget(dev))
+        budget = backend.memory_budget(dev)
+        bounded, planned = backend.front_end_plan(n, budget)
         if query_chunk is None:
             query_chunk = planned
+        logger.debug("unitigs: %s, query chunk %d of %d k-mers (ceiling %d, "
+                     "budget %d)", "bounded" if bounded else "one-shot",
+                     query_chunk, n, backend.front_end_ceiling(budget), budget)
         At, up_s = _set_on_device(A, dev, resident)
         t1 = time.perf_counter()
         if bounded:
             out, download_s = bounded_unitig_succ(At, k, query_chunk)
             t3 = time.perf_counter()
             t2 = t3 - download_s
+            down_b = sum(x.nbytes for x in out[:3])  # `both` is made here
         else:
             out = unitig_succ(At, k, query_chunk)
             backend.sync(dev)
             t2 = time.perf_counter()
             out = tuple(x.cpu().numpy() for x in out)
             t3 = time.perf_counter()
+            down_b = sum(x.nbytes for x in out)
     logger.debug(
         "unitigs: device front-end upload %.4f s, device %.4f s, "
-        "download %.4f s (%d k-mers, %d query chunks, %s%s)", up_s, t2 - t1,
-        t3 - t2, n, -(-n // max(1, query_chunk)),
-        "bounded" if bounded else "one shot",
+        "download %.4f s of %d B (%d k-mers, %d query chunks, %s%s)", up_s,
+        t2 - t1, t3 - t2, down_b, n,
+        -(-n // max(1, query_chunk)), "bounded" if bounded else "one shot",
         ", resident" if resident is not None else "",
     )
     return out

@@ -8,6 +8,8 @@ ceilings.  Every comparison is
 exact.
 """
 
+import logging
+
 import numpy as np
 import pytest
 import torch
@@ -267,3 +269,70 @@ def test_key_merge_fallback_matches_native_merge(monkeypatch):
             got = backend._merge_key_pair(x, y)
             assert got.dtype == np.int64
             np.testing.assert_array_equal(got, w)
+
+
+def _plan_lines(caplog, prefix: str):
+    return [r.getMessage() for r in caplog.records
+            if r.getMessage().startswith(prefix) and "(ceiling" in r.getMessage()]
+
+
+@pytest.mark.parametrize("k", [15, 23])
+def test_count_and_decode_plan_lines_at_a_patched_budget(monkeypatch, caplog, k):
+    """The count's and the decode's debug lines state the plan that the
+    budget gives: one shot up to the ceiling (budget // bytes per
+    window), above it ceil(W / ceiling) halo chunks of the ceiling.  The
+    line is the decision: each reads the budget once, and the halo
+    chunks that run are those of the line."""
+    codes, offsets = _codes(400 + k)
+    ps = PackedStrings(codes, offsets)
+    w = codes.size - k + 1
+    per = 48 if k <= 15 else 72
+    caplog.set_level(logging.DEBUG, logger="kmerset")
+    slices = []
+    chunk_slices = backend.chunk_slices
+
+    def spy_slices(*args):
+        slices.append(list(chunk_slices(*args)))
+        return slices[-1]
+
+    monkeypatch.setattr(backend, "chunk_slices", spy_slices)
+    for budget, chunks, chunk, ceiling in (
+        (per * 1500 + per - 1, 4, 1500, 1500),
+        (1 << 30, 1, w, (1 << 30) // per),
+    ):
+        reads = []
+        monkeypatch.setattr(backend, "memory_budget",
+                            lambda device: reads.append(1) or budget)
+        caplog.clear()
+        slices.clear()
+        KmerCounter._from_codes(k, codes, offsets, True, device="cpu")
+        port_spss.decode_unique_kmers(ps, k, True, device="cpu")
+        plan = (f"{w} windows in {chunks} chunk(s) of at most {chunk} "
+                f"(ceiling {ceiling}, budget {budget})")
+        assert _plan_lines(caplog, "count: ") == ["count: " + plan]
+        assert _plan_lines(caplog, "decode: ") == ["decode: " + plan]
+        assert reads == [1, 1]
+        assert [len(c) for c in slices] == ([chunks, chunks] if chunks > 1 else [])
+
+
+def test_front_end_plan_line_at_a_patched_budget(monkeypatch, caplog):
+    """The front-end's debug line states its mode, query chunk, ceiling
+    and budget as front_end_plan gives them: the whole-set arrays (80 B
+    per k-mer one shot, 10 bounded) within half the budget, and a query
+    chunk of what they leave at 320 B per queried k-mer."""
+    k = 23
+    A = _canonical_set(k, 5000, 77)
+    n = A.size
+    caplog.set_level(logging.DEBUG, logger="kmerset")
+    bounded = _spy(monkeypatch, unitigs, "bounded_unitig_succ")
+    for budget, mode, q, ceiling in (
+        (160 * 1000, "bounded", (160 * 1000 - 10 * n) // 320, 1000),
+        (1 << 30, "one-shot", n, (1 << 30) // 160),
+    ):
+        monkeypatch.setattr(backend, "memory_budget", lambda device: budget)
+        caplog.clear()
+        unitigs.device_unitig_succ(A, k, device="cpu")
+        assert _plan_lines(caplog, "unitigs: ") == [
+            f"unitigs: {mode}, query chunk {q} of {n} k-mers (ceiling "
+            f"{ceiling}, budget {budget})"]
+    assert bounded == [1]
