@@ -616,6 +616,21 @@ def write_reads_fasta(path: str, rng, genome_bases: int, coverage: float) -> Non
             f.write(b">s%d\n" % j + _BASES[r].tobytes() + b"\n")
 
 
+def _launch_counts() -> dict:
+    """The process's launches of kernels B1, B2 and B3 so far: the
+    tracer's counters launch.B1, launch.B2 and launch.B3."""
+    from kmerset_tpu_torch.utils import trace
+
+    c = trace.counts()
+    return {n: c.get(f"launch.{n}", 0) for n in ("B1", "B2", "B3")}
+
+
+def _launches_since(before: dict) -> dict:
+    """The launches of each kernel since _launch_counts() gave `before`."""
+    now = _launch_counts()
+    return {n: now[n] - before[n] for n in now}
+
+
 class _Capture(logging.Handler):
     def __init__(self):
         super().__init__(logging.DEBUG)
@@ -759,14 +774,13 @@ def main_path_run(torch, tag: str, fasta: str, k: int, cutoff: int,
     route).  Returns the launch counts, the port's phase times, its peak
     device memory and its log lines."""
     from kmerset_tpu_torch.cli import kmerset_build
-    from kmerset_tpu_torch.ops import compact, pack
 
     on_mesh = "," in device
     out_port = os.path.join(WORK, f"{tag}_port.txt")
     cap = _Capture()
     log = logging.getLogger(CLI_LOGGER)
     log.addHandler(cap)
-    pack.launches = pack.launches_pair = compact.launches = 0
+    launches0 = _launch_counts()
     torch.cuda.reset_peak_memory_stats()
     if link is not None:
         os.environ["KMERSET_TPU_LINK"] = link
@@ -781,8 +795,7 @@ def main_path_run(torch, tag: str, fasta: str, k: int, cutoff: int,
         os.environ.pop("KMERSET_TPU_LINK", None)
     t_end = time.time()
     peak_gib = torch.cuda.max_memory_allocated() / (1 << 30)
-    launches = {"B1": pack.launches, "B2": pack.launches_pair,
-                "B3": compact.launches}
+    launches = _launches_since(launches0)
     ref_err, ref_s = ref.wait(timeout=900)
 
     msgs = [m for _, m in cap.records]
@@ -1402,13 +1415,12 @@ def run_m(torch, tag: str, k: int, fastas) -> dict:
     from kmerset_tpu_torch.cli import (kmerset_build, kmerset_multiple_compress,
                                        kmerset_multiple_decompress,
                                        kmerset_stat, spss_benchmark)
-    from kmerset_tpu_torch.ops import compact, pack
 
     K = str(k)
     sets = [os.path.join(WORK, f"m{i}_k{k}.txt") for i in range(len(fastas))]
     port_dir, ref_dir = (os.path.join(WORK, f"M{k}_{d}") for d in ("port", "ref"))
     rtag = f"m{k}"
-    pack.launches = pack.launches_pair = compact.launches = 0
+    launches0 = _launch_counts()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     for fa, out in zip(fastas, sets):
@@ -1432,8 +1444,7 @@ def run_m(torch, tag: str, k: int, fastas) -> dict:
             "--device", DEVICE, "--k", K, *sets])
         bench_out, _, bench_s = _capture_run(spss_benchmark, [
             "--device", DEVICE, "--k", K, sets[0]])
-        launches = {"B1": pack.launches, "B2": pack.launches_pair,
-                    "B3": compact.launches}
+        launches = _launches_since(launches0)
         peak_gib = torch.cuda.max_memory_allocated() / (1 << 30)
         _, _, ref_comp_s = refs["compress"].wait_output(900)
         refs["decompress"] = RefCli(f"{rtag}_decompress",
@@ -1512,7 +1523,7 @@ def run_m(torch, tag: str, k: int, fastas) -> dict:
 _RANK_CLI = (
     "import importlib, json, logging, sys, time\n"
     "t0 = time.perf_counter()\n"
-    "from kmerset_tpu_torch.ops import compact, pack\n"
+    "from kmerset_tpu_torch.utils import trace\n"
     "cli = importlib.import_module('kmerset_tpu_torch.cli.' + sys.argv[1])\n"
     "log = logging.getLogger('kmerset')\n"
     "echo = logging.StreamHandler(sys.stderr)\n"
@@ -1522,9 +1533,8 @@ _RANK_CLI = (
     "t1 = time.perf_counter()\n"
     "cli.main(sys.argv[2:])\n"
     "print(json.dumps({'import_s': t1 - t0, 'cli_s': time.perf_counter() - t1,\n"
-    "                  'launches': {'B1': pack.launches,\n"
-    "                               'B2': pack.launches_pair,\n"
-    "                               'B3': compact.launches}}))\n"
+    "                  'launches': {n: trace.counts().get('launch.' + n, 0)\n"
+    "                               for n in ('B1', 'B2', 'B3')}}))\n"
 )
 GROUP_TIMEOUT_S = 600
 
@@ -1705,13 +1715,12 @@ def run_m_mesh(torch, tag: str, k: int, m: dict, devices: str) -> dict:
     from kmerset_tpu_torch.cli import (kmerset_multiple_compress,
                                        kmerset_multiple_decompress,
                                        kmerset_stat, spss_benchmark)
-    from kmerset_tpu_torch.ops import compact, pack
 
     K, ref = str(k), m["ref"]
     sets, ref_dir = ref["sets"], ref["dir"]
     port_dir = os.path.join(WORK, f"M{k}_mesh_{devices.count(',') + 1}")
     dev = ["--device", devices, "--k", K]
-    pack.launches = pack.launches_pair = compact.launches = 0
+    launches0 = _launch_counts()
     torch.cuda.reset_peak_memory_stats()
     _, comp_log, comp_s = _capture_run(kmerset_multiple_compress, [
         *dev, "--seed", "1", "--workers", "4", "--out", port_dir,
@@ -1719,8 +1728,7 @@ def run_m_mesh(torch, tag: str, k: int, m: dict, devices: str) -> dict:
     _, dec_log, dec_s = _capture_run(kmerset_multiple_decompress, [*dev, port_dir])
     stat_out, _, stat_s = _capture_run(kmerset_stat, [*dev, *sets])
     bench_out, _, bench_s = _capture_run(spss_benchmark, [*dev, sets[0]])
-    launches = {"B1": pack.launches, "B2": pack.launches_pair,
-                "B3": compact.launches}
+    launches = _launches_since(launches0)
     peak_gib = torch.cuda.max_memory_allocated() / (1 << 30)
 
     names = sorted(os.listdir(port_dir))
@@ -1898,7 +1906,7 @@ def check_library(torch, rng, fasta_a: str, fasta_d: str, S: np.ndarray,
 
         # The library calls, once each, with the launch counts at 0; the
         # host set algebra first, beside the reference's.
-        pack.launches = pack.launches_pair = compact.launches = 0
+        launches0 = _launch_counts()
         got, mine = {}, {}
 
         def timed(name, fn):
@@ -1935,8 +1943,7 @@ def check_library(torch, rng, fasta_a: str, fasta_d: str, S: np.ndarray,
         f_set = timed("get_kmer_set_from_file", lambda: get_kmer_set_from_file(
             15, dump_a, "", True, device=DEVICE))
         torch.cuda.synchronize()
-        launches = {"B1": pack.launches, "B2": pack.launches_pair,
-                    "B3": compact.launches}
+        launches = _launches_since(launches0)
         for name in ("B1", "B2", "B3"):
             if launches[name] <= 0:
                 raise AssertionError(f"{tag}: kernel {name} was not launched")
@@ -2122,7 +2129,7 @@ def check_link(torch, plan, refs, runs, S: np.ndarray, fasta_d: str) -> list:
     import kmerset_tpu_torch
     from kmerset_tpu_torch.core import native
     from kmerset_tpu_torch.core.kmer_counter import KmerCounter
-    from kmerset_tpu_torch.ops import compact, deltas, pack, unitigs
+    from kmerset_tpu_torch.ops import deltas, unitigs
 
     t21 = time.perf_counter()
     tag = "21 link"
@@ -2175,10 +2182,10 @@ def check_link(torch, plan, refs, runs, S: np.ndarray, fasta_d: str) -> list:
     n = S.size
     esc, cap, narrow = deltas.plan_escape(n, 15, True)
     keys = torch.from_numpy(S.astype(np.int32)).to(DEVICE)
-    pack.launches = pack.launches_pair = compact.launches = 0
+    launches0 = _launch_counts()
     got = deltas.encode(keys, n, esc, cap, narrow)
     torch.cuda.synchronize()
-    enc_launches = compact.launches
+    enc_launches = _launches_since(launches0)["B3"]
     if enc_launches != 1:
         raise AssertionError(f"the delta encode launched B3 {enc_launches} times")
     t0 = time.perf_counter()
@@ -2221,9 +2228,9 @@ def check_link(torch, plan, refs, runs, S: np.ndarray, fasta_d: str) -> list:
     # The handle's cutoff filter (run D, cutoff 2).
     counter = KmerCounter.from_fasta(19, fasta_d, "", True, spss_ahead=True,
                                      device=DEVICE)
-    compact.launches = 0
+    launches0 = _launch_counts()
     (ks, n_cut), filt_s = _timed(torch, lambda: counter.to_kmer_set(2))
-    filt_launches = compact.launches
+    filt_launches = _launches_since(launches0)["B3"]
     if filt_launches != 1 or ks.device is None or not ks.device.valid_for(ks.kmers, 19):
         raise AssertionError(f"run D's handle filter: {filt_launches} B3 launches, "
                              f"handle {ks.device}")
@@ -2393,7 +2400,7 @@ def genome_run(torch, tag: str, fasta: str, k: int, cutoff: int,
     of the dump.  chunked: the count must run in more than one chunk."""
     from kmerset_tpu_torch.cli import kmerset_build, kmerset_stat
     from kmerset_tpu_torch.core.kmer_set_compact import KmerSetCompact
-    from kmerset_tpu_torch.ops import backend, compact, pack
+    from kmerset_tpu_torch.ops import backend
 
     out = os.path.join(WORK, f"{tag.split()[-1]}_port.txt")
     budgets = []
@@ -2410,7 +2417,7 @@ def genome_run(torch, tag: str, fasta: str, k: int, cutoff: int,
     log.addHandler(cap)
     log.addHandler(peaks)
     backend.memory_budget = spy
-    pack.launches = pack.launches_pair = compact.launches = 0
+    launches0 = _launch_counts()
     held0 = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     rss_before = _max_rss_gib()
@@ -2427,8 +2434,7 @@ def genome_run(torch, tag: str, fasta: str, k: int, cutoff: int,
         sampler.done.set()
         sampler.join()
     t_end = time.time()
-    launches = {"B1": pack.launches, "B2": pack.launches_pair,
-                "B3": compact.launches}
+    launches = _launches_since(launches0)
     rss = _max_rss_gib()
     msgs = [m for _, m in cap.records]
     at = {m: t for t, m in cap.records}

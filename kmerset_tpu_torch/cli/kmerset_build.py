@@ -27,6 +27,7 @@ from __future__ import annotations
 
 import argparse
 import sys
+import time
 
 from ..core import io as core_io
 from ..core.config import get_config
@@ -38,6 +39,7 @@ from ..utils.log import enable_debug_logs, init_default_logger
 
 
 def main(argv=None) -> None:
+    started = time.perf_counter_ns()
     parser = argparse.ArgumentParser(
         description=(
             "Reads a FASTA file and constructs a set of k-mers. "
@@ -72,7 +74,7 @@ def main(argv=None) -> None:
     flag_util.apply_workers(args)
     cfg = get_config(args.k)
 
-    with flag_util.trace_context(args, device):
+    with flag_util.trace_context(args, device, "kmerset_build", started):
         logger.info("constructing kmer_counter")
         try:
             counter = KmerCounter.from_fasta(
@@ -98,25 +100,25 @@ def main(argv=None) -> None:
         logger.info("constructed kmer_set_compact")
         logger.info("kmer_set_compact.Size() = %d", compact.size())
 
-    if args.check:
-        # Decode the SPSS strings through a fresh compact set (from_kmer_set
-        # seeds the decode cache with the source k-mers, so reusing it
-        # would compare the array with itself).
-        decompressed = KmerSetCompact(
-            compact.k, compact.spss, device=device, mesh=mesh
-        ).to_kmer_set(args.canonical)
-        if kmer_set.equals(decompressed):
-            logger.info("kmer_set_compact -> KmerSet: ok")
-        else:
-            logger.error("kmer_set_compact -> KmerSet: failed")
-            sys.exit(1)
+        if args.check:
+            # Decode the SPSS strings through a fresh compact set
+            # (from_kmer_set seeds the decode cache with the source k-mers,
+            # so reusing it would compare the array with itself).
+            decompressed = KmerSetCompact(
+                compact.k, compact.spss, device=device, mesh=mesh
+            ).to_kmer_set(args.canonical)
+            if kmer_set.equals(decompressed):
+                logger.info("kmer_set_compact -> KmerSet: ok")
+            else:
+                logger.error("kmer_set_compact -> KmerSet: failed")
+                sys.exit(1)
 
-    if args.out:
-        try:
-            compact.dump(args.out, args.compressor)
-        except core_io.IOError_ as e:
-            logger.error("failed to dump kmer_set_compact: %s", e)
-            sys.exit(1)
+        if args.out:
+            try:
+                compact.dump(args.out, args.compressor)
+            except core_io.IOError_ as e:
+                logger.error("failed to dump kmer_set_compact: %s", e)
+                sys.exit(1)
     mesh_driver.end_distributed()
 
 

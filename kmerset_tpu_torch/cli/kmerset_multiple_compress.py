@@ -24,6 +24,7 @@ from __future__ import annotations
 
 import argparse
 import sys
+import time
 from concurrent.futures import ThreadPoolExecutor
 
 from ..core.config import get_config
@@ -35,6 +36,7 @@ from ..utils.log import enable_debug_logs, init_default_logger
 
 
 def main(argv=None) -> None:
+    started = time.perf_counter_ns()
     parser = argparse.ArgumentParser(
         description=(
             "Compresses multiple k-mer sets. Usage: kmerset-multiple-compress "
@@ -78,45 +80,45 @@ def main(argv=None) -> None:
         logger.info("finished reading: i = %d, file = %s", i, file)
         return c
 
-    try:
-        with ThreadPoolExecutor(max_workers=max(1, args.workers)) as ex:
-            compacts = list(ex.map(_load, enumerate(args.files)))
-    except Exception as e:  # noqa: BLE001
-        logger.error("failed to read file: %s", e)
-        sys.exit(1)
+    with flag_util.trace_context(args, device, "kmerset_multiple_compress", started):
+        try:
+            with ThreadPoolExecutor(max_workers=max(1, args.workers)) as ex:
+                compacts = list(ex.map(_load, enumerate(args.files)))
+        except Exception as e:  # noqa: BLE001
+            logger.error("failed to read file: %s", e)
+            sys.exit(1)
 
-    total_size = 0
-    for i, c in enumerate(compacts):
-        size = c.size()
-        logger.info("i = %d, size = %d", i, size)
-        total_size += size
-    logger.info("total_size = %d", total_size)
+        total_size = 0
+        for i, c in enumerate(compacts):
+            size = c.size()
+            logger.info("i = %d, size = %d", i, size)
+            total_size += size
+        logger.info("total_size = %d", total_size)
 
-    logger.info("constructing kmer_set_set")
-    with flag_util.trace_context(args, device):
+        logger.info("constructing kmer_set_set")
         kss = KmerSetSet(
             compacts, args.canonical, cfg, seed=args.seed,
             workers=max(1, args.workers), device=device, mesh=mesh,
         )
-    logger.info("constructed kmer_set_set")
+        logger.info("constructed kmer_set_set")
 
-    if args.out_graph:
-        logger.info("dumping graph")
-        try:
-            kss.dump_graph(args.out_graph)
-        except Exception as e:  # noqa: BLE001
-            logger.error("failed to dump graph: %s", e)
-        logger.info("dumped graph")
+        if args.out_graph:
+            logger.info("dumping graph")
+            try:
+                kss.dump_graph(args.out_graph)
+            except Exception as e:  # noqa: BLE001
+                logger.error("failed to dump graph: %s", e)
+            logger.info("dumped graph")
 
-    if args.out:
-        try:
-            kss.dump(
-                args.out, args.compressor, args.extension,
-                workers=args.workers,
-            )
-        except Exception as e:  # noqa: BLE001
-            logger.error("failed to dump kmer_set_set: %s", e)
-            sys.exit(1)
+        if args.out:
+            try:
+                kss.dump(
+                    args.out, args.compressor, args.extension,
+                    workers=args.workers,
+                )
+            except Exception as e:  # noqa: BLE001
+                logger.error("failed to dump kmer_set_set: %s", e)
+                sys.exit(1)
     mesh_driver.end_distributed()
 
 

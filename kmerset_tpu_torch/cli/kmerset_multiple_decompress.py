@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import argparse
 import sys
+import time
 
 from ..core.config import get_config
 from ..core.kmer_set_set import KmerSetSetReader
@@ -21,6 +22,7 @@ from ..utils.log import enable_debug_logs, init_default_logger
 
 
 def main(argv=None) -> None:
+    started = time.perf_counter_ns()
     parser = argparse.ArgumentParser(
         description=(
             'Decompresses the output of "kmerset-multiple-compress". '
@@ -43,19 +45,19 @@ def main(argv=None) -> None:
     flag_util.apply_workers(args)
     cfg = get_config(args.k)
 
-    logger.info("loading kmer_set_set_reader")
-    try:
-        reader = KmerSetSetReader.from_directory(
-            cfg, args.directory, args.extension, args.decompressor,
-            args.canonical, device=device, mesh=mesh,
-        )
-    except Exception as e:  # noqa: BLE001
-        logger.error("failed to load data: %s", e)
-        sys.exit(1)
-    logger.info("loaded kmer_set_set_reader")
-    logger.info("kmer_set_set_reader.Size() = %d", reader.size())
+    with flag_util.trace_context(args, device, "kmerset_multiple_decompress", started):
+        logger.info("loading kmer_set_set_reader")
+        try:
+            reader = KmerSetSetReader.from_directory(
+                cfg, args.directory, args.extension, args.decompressor,
+                args.canonical, device=device, mesh=mesh,
+            )
+        except Exception as e:  # noqa: BLE001
+            logger.error("failed to load data: %s", e)
+            sys.exit(1)
+        logger.info("loaded kmer_set_set_reader")
+        logger.info("kmer_set_set_reader.Size() = %d", reader.size())
 
-    with flag_util.trace_context(args, device):
         it = reader.get_all(workers=args.workers)
         try:
             for i in range(reader.size()):

@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import argparse
 import sys
+import time
 
 from ..core.config import get_config
 from ..core.kmer_set_compact import KmerSetCompact
@@ -20,6 +21,7 @@ from ..utils.log import enable_debug_logs, init_default_logger
 
 
 def main(argv=None) -> None:
+    started = time.perf_counter_ns()
     parser = argparse.ArgumentParser(
         description=(
             "Prints the metadata of a k-mer set. "
@@ -39,7 +41,7 @@ def main(argv=None) -> None:
     flag_util.apply_workers(args)
     cfg = get_config(args.k)
 
-    with flag_util.trace_context(args, device):
+    with flag_util.trace_context(args, device, "kmerset_stat", started):
         for i, file_name in enumerate(args.files):
             logger.info("processing: i = %d, file_name = %s", i, file_name)
             try:

@@ -26,6 +26,7 @@ from ..utils.log import enable_debug_logs, init_default_logger
 
 
 def main(argv=None) -> None:
+    started = time.perf_counter_ns()
     parser = argparse.ArgumentParser(
         description=(
             "Runs a benchmark for SPSS construction using a single k-mer "
@@ -57,23 +58,23 @@ def main(argv=None) -> None:
             "reference CLI compatibility"
         )
 
-    try:
-        compact = KmerSetCompact.load(
-            cfg.k, args.file, args.decompressor, device=device, mesh=mesh
-        )
-    except Exception as e:  # noqa: BLE001
-        logger.error("failed to load: %s", e)
-        sys.exit(1)
-    kmer_set = compact.to_kmer_set(True)
+    with flag_util.trace_context(args, device, "spss_benchmark", started):
+        try:
+            compact = KmerSetCompact.load(
+                cfg.k, args.file, args.decompressor, device=device, mesh=mesh
+            )
+        except Exception as e:  # noqa: BLE001
+            logger.error("failed to load: %s", e)
+            sys.exit(1)
+        kmer_set = compact.to_kmer_set(True)
 
-    logger.info("kmer_set.Size() = %d", kmer_set.size())
-    logger.info("kmer_set.Hash() = %d", kmer_set.hash())
+        logger.info("kmer_set.Size() = %d", kmer_set.size())
+        logger.info("kmer_set.Hash() = %d", kmer_set.hash())
 
-    logger.info("constructing unitigs")
-    unitigs = spss_mod.get_unitigs_canonical(kmer_set, device=device, mesh=mesh)
-    logger.info("constructed unitigs")
+        logger.info("constructing unitigs")
+        unitigs = spss_mod.get_unitigs_canonical(kmer_set, device=device, mesh=mesh)
+        logger.info("constructed unitigs")
 
-    with flag_util.trace_context(args, device):
         for _ in range(args.repeats):
             out = []
             for fast in (False, True):

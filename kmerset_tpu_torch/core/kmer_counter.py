@@ -36,6 +36,7 @@ import numpy as np
 from .. import resolve_device
 from ..ops import backend
 from ..parallel import driver as mesh_driver
+from ..utils import trace
 from . import io as core_io
 from . import kmer as kmer_ops
 from . import native
@@ -102,22 +103,28 @@ class KmerCounter:
         device, mesh=None,
     ) -> "KmerCounter":
         """FASTA file (optionally piped through `decompressor`) -> counter.
-        Raises core.io.IOError_ on unreadable or malformed input."""
-        if native.get_lib() is None:
-            lines = core_io.read_lines(file_name, decompressor)
-            return cls.from_fasta_lines(
-                k, lines, canonical, value_max, spss_ahead, device=device,
-                mesh=mesh,
+        Raises core.io.IOError_ on unreadable or malformed input.  The
+        span "count.construct", and in it "count.parse" (the read and the
+        parse), then the count's own."""
+        with trace.span("count.construct"):
+            with trace.span("count.parse", file=file_name) as sp:
+                if native.get_lib() is None:
+                    reads = core_io.parse_fasta_lines(
+                        core_io.read_lines(file_name, decompressor))
+                    codes, offsets = core_io.reads_to_codes(reads)
+                else:
+                    data = core_io.read_file_bytes(file_name, decompressor)
+                    sp.set(bytes=len(data))
+                    try:
+                        codes, offsets = native.parse_fasta_bytes(data)
+                    except ValueError as e:
+                        raise core_io.IOError_(str(e)) from e
+                    del data
+                sp.set(codes=int(codes.shape[0]))
+            return cls._from_codes(
+                k, codes, offsets, canonical, value_max, spss_ahead,
+                device=device, mesh=mesh,
             )
-        data = core_io.read_file_bytes(file_name, decompressor)
-        try:
-            codes, offsets = native.parse_fasta_bytes(data)
-        except ValueError as e:
-            raise core_io.IOError_(str(e)) from e
-        return cls._from_codes(
-            k, codes, offsets, canonical, value_max, spss_ahead, device=device,
-            mesh=mesh,
-        )
 
     @classmethod
     def from_fasta_lines(
@@ -220,7 +227,11 @@ class KmerCounter:
         filter's array (reference kmer_counter.py:315-343).  A handle that
         valid_for refuses (one left behind by adds) is dropped; a device
         filter that disagrees with the host filter raises, where the
-        reference's drops the handle."""
+        reference's drops the handle.  The span "count.filter"."""
+        with trace.span("count.filter", cutoff=cutoff):
+            return self._to_kmer_set(cutoff)
+
+    def _to_kmer_set(self, cutoff: int) -> Tuple[KmerSet, int]:
         self._flush()
         res = self._device
         if res is not None and not res.valid_for(self.kmers, self.k):

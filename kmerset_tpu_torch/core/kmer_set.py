@@ -20,6 +20,7 @@ from __future__ import annotations
 
 import numpy as np
 
+from ..utils import trace
 from .arrays import sorted_unique
 from .config import KConfig
 
@@ -119,8 +120,10 @@ class KmerSet:
     def hash(self) -> int:
         """Order-independent XOR hash over packed bits, identical to the
         reference's value (reference: lib/core/kmer_set.h:221-244 XORs
-        kmer.Bits() over all elements).  Returned as unsigned."""
-        h = int(np.bitwise_xor.reduce(self.kmers)) if self.kmers.size else 0
+        kmer.Bits() over all elements).  Returned as unsigned.  The span
+        "set.hash"."""
+        with trace.span("set.hash"):
+            h = int(np.bitwise_xor.reduce(self.kmers)) if self.kmers.size else 0
         return h & ((1 << 64) - 1)
 
     # -- bucket view (the shard axis) --------------------------------------

@@ -27,12 +27,12 @@ are the reference's.
 from __future__ import annotations
 
 import logging
-import time
 from typing import Optional
 
 import numpy as np
 
 from .. import resolve_device
+from ..utils import trace
 from . import io as core_io
 from . import spss as spss_mod
 from .config import KConfig
@@ -72,16 +72,18 @@ class KmerSetCompact:
             kmers, canonical, fast, resident = self._pending
             ks = KmerSet(self.k, kmers, _sorted=True)
             ks.device = resident
-            t0 = time.perf_counter()
-            if canonical:
-                built = spss_mod.get_spss_canonical(
-                    ks, fast, device=self.device, mesh=self.mesh
-                )
-            else:
-                built = spss_mod.get_spss(ks, device=self.device, mesh=self.mesh)
+            with trace.timed("compact.deferred_build",
+                             kmers=int(kmers.shape[0])) as sp:
+                if canonical:
+                    built = spss_mod.get_spss_canonical(
+                        ks, fast, device=self.device, mesh=self.mesh
+                    )
+                else:
+                    built = spss_mod.get_spss(ks, device=self.device,
+                                              mesh=self.mesh)
             logger.debug(
                 "kmer_set_compact: deferred SPSS build %.4f s (%d k-mers)",
-                time.perf_counter() - t0, kmers.shape[0],
+                sp.seconds, kmers.shape[0],
             )
             self._spss = built
             self._pending = None
@@ -141,9 +143,12 @@ class KmerSetCompact:
     # -- persistence (reference: kmer_set_compact.h:57-87) -----------------
 
     def dump(self, file_name: str, compressor: str = "") -> None:
-        core_io.write_file_bytes(
-            file_name, compressor, self.spss.to_lines_bytes()
-        )
+        """Writes the SPSS strings one per line (the span "io.dump"; a
+        deferred build runs inside it)."""
+        with trace.span("io.dump", file=file_name) as sp:
+            data = self.spss.to_lines_bytes()
+            sp.set(bytes=len(data))
+            core_io.write_file_bytes(file_name, compressor, data)
 
     @classmethod
     def load(
@@ -151,14 +156,16 @@ class KmerSetCompact:
         mesh=None,
     ) -> "KmerSetCompact":
         """A dump's lines as the SPSS, on a device (its decode on `mesh`
-        where there is one)."""
-        data = core_io.read_file_bytes(file_name, decompressor)
-        if b"\r" in data:
-            # Universal-newline parity with a text-mode reader: a CRLF
-            # (or classic-Mac) dump must keep loading.
-            data = data.replace(b"\r\n", b"\n").replace(b"\r", b"\n")
-        return cls(k, PackedStrings.from_lines_bytes(data), device=device,
-                   mesh=mesh)
+        where there is one): the span "io.load"."""
+        with trace.span("io.load", file=file_name) as sp:
+            data = core_io.read_file_bytes(file_name, decompressor)
+            sp.set(bytes=len(data))
+            if b"\r" in data:
+                # Universal-newline parity with a text-mode reader: a CRLF
+                # (or classic-Mac) dump must keep loading.
+                data = data.replace(b"\r\n", b"\n").replace(b"\r", b"\n")
+            strings = PackedStrings.from_lines_bytes(data)
+        return cls(k, strings, device=device, mesh=mesh)
 
     # -- metrics (reference: kmer_set_compact.h:89-115) --------------------
 

@@ -55,6 +55,7 @@ import torch
 from .. import resolve_device
 from ..core import native
 from ..core.arrays import sorted_unique
+from ..utils import trace
 from . import count as count_ops
 from . import deltas
 from .pack import SINGLE_MAX_K
@@ -226,11 +227,45 @@ class Staged(NamedTuple):
     L: int  # codes in `packed` (== total: no padding)
 
 
+def upload(what: str, array, device, dtype=None) -> torch.Tensor:
+    """The host array (numpy or a CPU tensor) on `device`, in `dtype` if
+    given: every host-to-device copy of the main path goes through here,
+    a span "copy.h2d" with its `what` and bytes, counted in h2d_bytes and
+    h2d_copies (on the CPU device too, where no copy crosses a link)."""
+    t = torch.from_numpy(array) if isinstance(array, np.ndarray) else array
+    nbytes = t.numel() * t.element_size()
+    with trace.span("copy.h2d", what=what, bytes=nbytes):
+        trace.add("h2d_bytes", nbytes)
+        trace.add("h2d_copies")
+        return t.to(device, dtype)
+
+
+def download(what: str, t: torch.Tensor, logged: bool = False) -> np.ndarray:
+    """The tensor on the host as numpy, after the work queued on its
+    device: every device-to-host copy of the main path goes through here,
+    scalar reads too (int(download(...))), a span "copy.d2h" with its
+    `what` and bytes, counted in d2h_bytes and d2h_copies (on the CPU
+    device too, where no copy crosses a link).  With `logged`, the count's
+    line "count: WHAT download N B in S s" states its bytes and seconds
+    at debug level (timed from when the work queued before it is done)."""
+    sync(t.device)
+    nbytes = t.numel() * t.element_size()
+    with trace.timed("copy.d2h", what=what, bytes=nbytes) as s:
+        trace.add("d2h_bytes", nbytes)
+        trace.add("d2h_copies")
+        out = t.cpu().numpy()
+    if logged:
+        logger.debug("count: %s download %d B in %.4f s", what, out.nbytes,
+                     s.seconds)
+    return out
+
+
 def stage(
-    codes: np.ndarray, offsets: np.ndarray, k: int, device
+    codes: np.ndarray, offsets: np.ndarray, k: int, device, what: str = "count"
 ) -> Optional[Staged]:
-    """Uploads the 2-bit packed codes and the int32 fragment bounds to
-    `device`.  Returns None for inputs that hold no window."""
+    """Packs the codes 2 bits each on the host and uploads them and the
+    int32 fragment bounds to `device`: the span "<what>.stage".  Returns
+    None for inputs that hold no window."""
     total = int(codes.shape[0])
     if total < k:
         return None
@@ -240,14 +275,15 @@ def stage(
             f"the port's kernels ({MAX_WINDOWS}) in one shot; count in "
             "chunks (device_count_chunked)"
         )
-    packed = native.pack2(np.ascontiguousarray(codes, dtype=np.uint8))
-    bounds = np.asarray(offsets, dtype=np.int64)[1:].astype(np.int32)
-    return Staged(
-        torch.from_numpy(packed).to(device),
-        torch.from_numpy(bounds).to(device),
-        total,
-        total,
-    )
+    with trace.span(f"{what}.stage", codes=total):
+        packed = native.pack2(np.ascontiguousarray(codes, dtype=np.uint8))
+        bounds = np.asarray(offsets, dtype=np.int64)[1:].astype(np.int32)
+        return Staged(
+            upload("packed codes", packed, device),
+            upload("fragment bounds", bounds, device),
+            total,
+            total,
+        )
 
 
 def host_library_loaded() -> bool:
@@ -258,17 +294,6 @@ def host_library_loaded() -> bool:
     return native.get_lib() is not None
 
 
-def _download(what: str, t: torch.Tensor) -> np.ndarray:
-    """t on the host, with its bytes and seconds logged at debug level
-    (timed from when the work queued before it is done)."""
-    sync(t.device)
-    t0 = time.perf_counter()
-    out = t.cpu().numpy()
-    logger.debug("count: %s download %d B in %.4f s", what, out.nbytes,
-                 time.perf_counter() - t0)
-    return out
-
-
 def _counts_fetch(counts, value_max: int) -> np.ndarray:
     """The counts on the host.  With value_max > 0 they are saturated on
     the device and, up to 255, downloaded as uint8 (reference
@@ -276,8 +301,8 @@ def _counts_fetch(counts, value_max: int) -> np.ndarray:
     if value_max:
         counts = torch.clamp(counts, max=value_max)
         if value_max <= 255:
-            return _download("counts", counts.to(torch.uint8))
-    return _download("counts", counts).astype(np.int64)
+            return download("counts", counts.to(torch.uint8), logged=True)
+    return download("counts", counts, logged=True).astype(np.int64)
 
 
 def count_plan(what: str, n_windows: int, k: int, device) -> int:
@@ -315,29 +340,36 @@ def device_count(
     the handle's side codes are launched; then the keys are downloaded
     (gap-encoded where the format takes them, else in their device dtype:
     int32 for k <= 15, int64 above), then the counts; last the handle's
-    endpoints are stamped and its side codes start their download."""
+    endpoints are stamped and its side codes start their download.
+    The span "count.stage" covers the pack and upload, "count.device"
+    the launches to the counts' fetch."""
     with device_lock(device):
         staged = stage(codes, offsets, k, device)
         if staged is None:
             empty = np.empty(0, np.int64), np.empty(0, np.int64)
             return (*empty, None) if resident else empty
-        keys, counts, n = count_ops.count_kmers_frag(*staged, k, canonical)
-        pending = None
-        # The size first: a small count never probes the link.
-        if n >= DELTA_MIN_KEYS and _slow_link(device):
-            pending = deltas.dispatch_delta(keys, n, k, canonical)
-        handle = None
-        if resident:
-            from .resident import DeviceKmers  # resident imports this module
+        with trace.span("count.device") as sp:
+            keys, counts, n = count_ops.count_kmers_frag(*staged, k, canonical)
+            sp.set(kmers=n)
+            pending = None
+            # The size first: a small count never probes the link.
+            if n >= DELTA_MIN_KEYS and _slow_link(device):
+                pending = deltas.dispatch_delta(keys, n, k, canonical)
+            handle = None
+            if resident:
+                from .resident import DeviceKmers  # resident imports this module
 
-            handle = DeviceKmers.from_count_outputs(keys, counts, n, k, canonical)
-            if (handle is not None and spss_ahead and canonical
-                    and side_code_route(n, device)):
-                handle.prefetch_sides()
-        uniq = deltas.fetch_delta(pending, n) if pending is not None else None
-        if uniq is None:
-            uniq = _download("keys", keys).astype(np.int64, copy=False)
-        counts_h = _counts_fetch(counts, value_max)
+                handle = DeviceKmers.from_count_outputs(keys, counts, n, k,
+                                                        canonical)
+                if (handle is not None and spss_ahead and canonical
+                        and side_code_route(n, device)):
+                    handle.prefetch_sides()
+            uniq = (deltas.fetch_delta(pending, n) if pending is not None
+                    else None)
+            if uniq is None:
+                uniq = download("keys", keys, logged=True).astype(np.int64,
+                                                              copy=False)
+            counts_h = _counts_fetch(counts, value_max)
         if handle is not None:
             handle.with_endpoints(uniq)
             handle.start_sides_download()
@@ -350,11 +382,12 @@ def device_unique(
     """Sorted distinct (canonical) k-mers of the fragment stream: the
     decode direction, the counting pipeline at cutoff 1 without counts."""
     with device_lock(device):
-        staged = stage(codes, offsets, k, device)
+        staged = stage(codes, offsets, k, device, "decode")
         if staged is None:
             return np.empty(0, np.int64)
-        keys, _, _ = count_ops.count_to_set_frag(*staged, k, canonical, 1)
-        return keys.cpu().numpy().astype(np.int64, copy=False)
+        with trace.span("decode.device"):
+            keys, _, _ = count_ops.count_to_set_frag(*staged, k, canonical, 1)
+            return download("keys", keys).astype(np.int64, copy=False)
 
 
 def chunk_slices(
@@ -397,13 +430,16 @@ def device_count_chunked(
     runs merged on the host.  Counts stay raw: the caller saturates them
     after the merge, or cross-chunk sums would saturate early
     (reference backend.py:705-710).  chunk_windows: by default the
-    one-shot ceiling of the budget now (count_plan's chunk size)."""
+    one-shot ceiling of the budget now (count_plan's chunk size).  The
+    span "count.chunked" (chunks) holds the chunks' counts."""
     if codes.shape[0] - (k - 1) <= 0:
         return np.empty(0, np.int64), np.empty(0, np.int64)
-    parts = [
-        device_count(c, o, k, canonical, device=device)
-        for c, o in _chunks(codes, offsets, k, device, chunk_windows)
-    ]
+    with trace.span("count.chunked") as sp:
+        parts = [
+            device_count(c, o, k, canonical, device=device)
+            for c, o in _chunks(codes, offsets, k, device, chunk_windows)
+        ]
+        sp.set(chunks=len(parts))
     return _merge_logged("count", parts, _merge_count_pair)
 
 
@@ -445,12 +481,12 @@ def _merge_cascade(parts: list, merge_pair):
 
 
 def _merge_logged(what: str, parts: list, merge_pair):
-    """_merge_cascade of the chunks' runs, its seconds and the merged key
-    count logged at debug level."""
-    t0 = time.perf_counter()
-    out = _merge_cascade(parts, merge_pair)
+    """_merge_cascade of the chunks' runs (the span "<what>.merge"), its
+    seconds and the merged key count logged at debug level."""
+    with trace.timed(f"{what}.merge", chunks=len(parts)) as s:
+        out = _merge_cascade(parts, merge_pair)
     logger.debug("%s: merged %d chunk(s) on the host in %.4f s (%d keys)",
-                 what, len(parts), time.perf_counter() - t0,
+                 what, len(parts), s.seconds,
                  (out[0] if isinstance(out, tuple) else out).shape[0])
     return out
 

@@ -16,12 +16,11 @@ from typing import Sequence, Tuple
 
 import torch
 
+from ..utils import trace
+
 MAX_LANES = 3
 LANE_DTYPES = (torch.int32, torch.int64)
 TILE = 4096  # elements per tile of csrc/compact.cu (kTile)
-
-# Wrapper calls that launched the kernel since the last reset.
-launches = 0
 
 
 def compact_select_plain(
@@ -68,7 +67,8 @@ def compact_select(
     (reading it syncs).
 
     A CUDA tensor runs kernel B3: one memset of its scratch and one
-    launch, reading `keep` once; any nonzero `keep` byte is kept.  Views
+    launch, reading `keep` once, counted in launch.B3 (utils/trace.py);
+    any nonzero `keep` byte is kept.  Views
     at any element offset are taken (the kernel reads a tensor that is not
     16-byte aligned element by element).  A CPU tensor runs the plain
     version."""
@@ -102,6 +102,5 @@ def compact_select(
             ),
             "compact kernel B3",
         )
-    global launches
-    launches += 1
+    trace.add("launch.B3")
     return outs, n_sel

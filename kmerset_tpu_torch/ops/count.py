@@ -40,6 +40,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from . import backend
 from .compact import compact_select
 from .pack import MAX_K, SINGLE_MAX_K, key_sentinel
 from .pack import canonical_windows as pack_windows
@@ -164,7 +165,7 @@ def count_runs(s, live, boundary, mark=_no_mark):
     pos = torch.arange(s.shape[0], dtype=torch.int32, device=s.device)
     (ckeys, cpos), n_sel = compact_select([s, pos], boundary)
     mark("B3 compact")
-    n = int(n_sel)
+    n = int(backend.download("n_unique", n_sel))
     # Each run ends where the next begins; the last at the live count.
     ends = torch.cat([cpos[1:n], live.sum(dtype=torch.int32).view(1)])[:n]
     counts = ends - cpos[:n]
@@ -181,8 +182,8 @@ def _cutoff_runs(s, live, boundary, cutoff: int):
     else:
         keep = boundary & (_run_lengths(boundary, live) >= cutoff)
     (ckeys,), n_kept = compact_select([s], keep)
-    m = int(n_kept)
-    return ckeys[:m], m, int(boundary.sum()) - m
+    m = int(backend.download("n_kept", n_kept))
+    return ckeys[:m], m, int(backend.download("n_runs", boundary.sum())) - m
 
 
 def count_to_set_frag(

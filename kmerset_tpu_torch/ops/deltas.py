@@ -45,13 +45,14 @@ from __future__ import annotations
 
 import logging
 import math
-import time
 from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from ..core import native
+from ..utils import trace
+from . import backend
 from .compact import compact_select
 from .pack import SINGLE_MAX_K
 
@@ -207,10 +208,9 @@ def fetch_delta(pending: Pending, n: int) -> Optional[np.ndarray]:
     is not the tail row's (reference deltas.py:194-246).  Logs the wire
     bytes and the download and decode seconds at debug level."""
     global downloads
-    t0 = time.perf_counter()
-    d_h = pending.dsmall.cpu().numpy()
-    exc_h = pending.exc.cpu().numpy()
-    t1 = time.perf_counter()
+    with trace.timed("deltas.download") as dl:
+        d_h = backend.download("gaps", pending.dsmall)
+        exc_h = backend.download("exception rows", pending.exc)
     if pending.esc != 255:
         d_h = d_h.view(np.uint16)
     # min(n, cap) exception rows and the tail row.
@@ -219,7 +219,8 @@ def fetch_delta(pending: Pending, n: int) -> Optional[np.ndarray]:
     if n_over > cap_eff:
         _reject("overflow", f"{n_over} gap overflows exceed the {cap_eff}-row table")
         return None
-    out = _decode(d_h, exc_h, n_over)
+    with trace.timed("deltas.decode", keys=n) as dc:
+        out = _decode(d_h, exc_h, n_over)
     if out is None or (n and int(out[-1]) != last):
         _reject("integrity", "the decoded keys failed the integrity checks")
         return None
@@ -228,7 +229,7 @@ def fetch_delta(pending: Pending, n: int) -> Optional[np.ndarray]:
         "deltas: key download %d B (gaps %d B, %d exception rows of %d B) in "
         "%.4f s, decode %.4f s (%d keys, esc %d, %d overflows)",
         d_h.nbytes + exc_h.nbytes, d_h.nbytes, exc_h.shape[0], exc_h.itemsize * 2,
-        t1 - t0, time.perf_counter() - t1, n, pending.esc, n_over,
+        dl.seconds, dc.seconds, n, pending.esc, n_over,
     )
     return out
 

@@ -24,16 +24,12 @@ from typing import Optional
 
 import torch
 
+from ..utils import trace
+
 S_SENT = (1 << 31) - 1  # reference ops/count.py _S_SENT (int32 keys)
 SENTINEL = 1 << 62  # reference ops/count.py SENTINEL (int64 keys)
 SINGLE_MAX_K = 15  # 2k <= 30 bits: one non-negative int32 key (B1)
 MAX_K = 31  # 2k <= 62 bits: one int64 key below SENTINEL (B2)
-
-# Kernel launches since the last reset (plain integers; a run sets them to
-# 0 and reads them to show its main path went through the kernels):
-# `launches` counts B1, `launches_pair` counts B2.
-launches = 0
-launches_pair = 0
 
 
 def key_dtype(k: int) -> torch.dtype:
@@ -113,7 +109,8 @@ def canonical_windows(
 
     A CUDA tensor runs the kernel, which takes `packed` and `valid`
     16-byte aligned (it stages them with 16-byte copies; a fresh tensor
-    or a slice from its start is); a CPU tensor runs the plain version."""
+    or a slice from its start is), counted in launch.B1 or launch.B2
+    (utils/trace.py); a CPU tensor runs the plain version."""
     n = _check(packed, L, k, valid)
     if packed.device.type == "cpu":
         return canonical_windows_plain(packed, L, k, canonical, valid)
@@ -136,9 +133,5 @@ def canonical_windows(
             out.data_ptr(), n, stream,
         )
     _build.check(lib, err, "pack kernel B1" if single else "pack kernel B2")
-    global launches, launches_pair
-    if single:
-        launches += 1
-    else:
-        launches_pair += 1
+    trace.add("launch.B1" if single else "launch.B2")
     return out

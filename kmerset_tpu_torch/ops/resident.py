@@ -109,7 +109,7 @@ class DeviceKmers:
             return None
         keep = torch.clamp(self.counts, max=value_max) >= cutoff
         (kept,), n_kept = compact_select([self.arr], keep)
-        n = int(n_kept)
+        n = int(backend.download("n_kept", n_kept))
         return DeviceKmers(kept[:n], None, n, self.k, self.canonical, None, None)
 
     def with_endpoints(self, kmers: np.ndarray) -> Optional["DeviceKmers"]:
@@ -132,7 +132,8 @@ class DeviceKmers:
         if self.n != kmers.shape[0] or self.n == 0:
             return None
         idx = np.unique(np.linspace(0, self.n - 1, num=min(self.n, 16), dtype=np.int64))
-        sample = self.arr[torch.from_numpy(idx).to(self.arr.device)].cpu().numpy()
+        at = backend.upload("sample positions", idx, self.arr.device)
+        sample = backend.download("sample", self.arr[at])
         if not np.array_equal(sample, kmers[idx]):
             return None
         self.first = int(kmers[0])
@@ -170,7 +171,7 @@ class DeviceKmers:
         """The prefetched side codes on the host: waits for the download
         that start_sides_download began, or downloads them now."""
         if self.sides_download is None:
-            return self.sides.cpu().numpy()
+            return backend.download("side codes", self.sides)
         host, done = self.sides_download
         if done is not None:
             done.synchronize()

@@ -65,7 +65,7 @@ class DeviceSketchTable:
         mat = np.full((max(1, self.n), self.S), SENTINEL, dtype=np.int64)
         for i, s in enumerate(sketches):
             mat[i, : s.shape[0]] = s
-        self._sk = torch.from_numpy(mat).to(self.device)
+        self._sk = backend.upload("sketch table", mat, self.device)
 
     @property
     def rows(self) -> torch.Tensor:
@@ -81,7 +81,7 @@ class DeviceSketchTable:
             raise ValueError(f"sketch of size {m} exceeds capacity {self.S}")
         row = np.full(self.S, SENTINEL, dtype=np.int64)
         row[:m] = sketch
-        return torch.from_numpy(row).to(self.device)
+        return backend.upload("sketch row", row, self.device)
 
     def set_row(self, i: int, sketch: np.ndarray) -> None:
         if not 0 <= i < self.n:
@@ -113,7 +113,7 @@ class DeviceSketchTable:
         if idx.min() < 0 or idx.max() >= self.n:
             raise IndexError(f"a pair names a row outside 0..{self.n - 1}")
         with backend.device_lock(self.device):
-            idx = torch.from_numpy(idx).to(self.device)
+            idx = backend.upload("pairs", idx, self.device)
             batch = self.batch_pairs()
             out = torch.empty(idx.shape[0], dtype=torch.int64, device=self.device)
             for s in range(0, idx.shape[0], batch):
@@ -121,7 +121,7 @@ class DeviceSketchTable:
                 out[s : s + batch] = _row_intersections(
                     self._sk[ia], self._sk[ib]
                 )
-            return out.cpu().numpy()
+            return backend.download("pair weights", out)
 
 
 class MeshSketchTable:
@@ -151,7 +151,7 @@ class MeshSketchTable:
             mat = np.full((self._cap, self.widths[d]), SENTINEL, dtype=np.int64)
             for i, p in enumerate(parts):
                 mat[i, : p[d].shape[0]] = p[d]
-            self._sk.append(torch.from_numpy(mat).to(dev))
+            self._sk.append(backend.upload("sketch table", mat, dev))
 
     @property
     def rows(self) -> List[torch.Tensor]:
@@ -175,7 +175,7 @@ class MeshSketchTable:
         for d, dev in zip(self.mesh.local, self.mesh.devices):
             row = np.full(self.widths[d], SENTINEL, dtype=np.int64)
             row[: parts[d].shape[0]] = parts[d]
-            out.append(torch.from_numpy(row).to(dev))
+            out.append(backend.upload("sketch row", row, dev))
         return out
 
     def set_row(self, i: int, sketch: np.ndarray) -> None:
@@ -223,9 +223,9 @@ class MeshSketchTable:
         if idx.min() < 0 or idx.max() >= self.n:
             raise IndexError(f"a pair names a row outside 0..{self.n - 1}")
         with driver._step("sketch weights", self.mesh):
-            idx = torch.from_numpy(idx).to(self.mesh.home)
+            idx = backend.upload("pairs", idx, self.mesh.home)
             batch = self.batch_pairs()
             blocks = self.rows
             out = [sharded_sketch_weights(self.mesh, blocks, idx[s : s + batch])
                    for s in range(0, idx.shape[0], batch)]
-            return torch.cat(out).cpu().numpy()
+            return backend.download("pair weights", torch.cat(out))

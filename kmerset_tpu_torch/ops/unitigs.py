@@ -25,13 +25,13 @@ in place of uploading A.
 from __future__ import annotations
 
 import logging
-import time
 from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
 from .. import resolve_device
+from ..utils import trace
 from . import backend
 from .neighbors import side_tables
 
@@ -111,9 +111,10 @@ def bounded_unitig_succ(A: torch.Tensor, k: int, query_chunk: int):
     per k-mer beside one query chunk, where unitig_succ keeps ~80.  One
     pass over the query chunks takes the degrees; a second builds each
     chunk's side tables again, takes its terminal tests and successor
-    rows with the whole set's degrees, and downloads them.  Returns
-    ((succ, term_l, term_r, both), seconds spent downloading).
-    device_unitig_succ takes it above backend.front_end_ceiling."""
+    rows with the whole set's degrees, and downloads them (spans
+    "front_end.download").  Returns ((succ, term_l, term_r, both),
+    seconds spent downloading).  device_unitig_succ takes it above
+    backend.front_end_ceiling."""
     if query_chunk < 1:
         raise ValueError(f"query_chunk must be >= 1, got {query_chunk}")
     n = A.shape[0]
@@ -126,11 +127,12 @@ def bounded_unitig_succ(A: torch.Tensor, k: int, query_chunk: int):
         hi = min(lo + query_chunk, n)
         rows = _exits(side_tables(A, k, True, lo, hi), rdeg, ldeg)
         backend.sync(A.device)
-        t0 = time.perf_counter()
-        for host, part in zip((succ[2 * lo : 2 * hi], term_l[lo:hi],
-                               term_r[lo:hi]), rows):
-            host[:] = part.cpu().numpy()
-        download_s += time.perf_counter() - t0
+        with trace.timed("front_end.download") as sp:
+            for host, part, what in zip((succ[2 * lo : 2 * hi], term_l[lo:hi],
+                                         term_r[lo:hi]), rows,
+                                        ("succ", "term_l", "term_r")):
+                host[:] = backend.download(what, part)
+        download_s += sp.seconds
     return (succ, term_l, term_r, term_l & term_r), download_s
 
 
@@ -188,9 +190,9 @@ def dispatch_sides(arr: torch.Tensor, k: int, query_chunk: Optional[int] = None)
 
 def _set_on_device(A: np.ndarray, dev: torch.device, resident):
     """(the set as an int64 tensor on dev, upload seconds): the resident
-    handle's tensor, or A uploaded.  A handle of another length or on
-    another device raises: the caller validates it first
-    (DeviceKmers.valid_for, DeviceKmers.on)."""
+    handle's tensor, or A uploaded (the span "front_end.upload").  A
+    handle of another length or on another device raises: the caller
+    validates it first (DeviceKmers.valid_for, DeviceKmers.on)."""
     if resident is not None:
         if resident.n != A.shape[0] or not resident.on(dev):
             raise ValueError(
@@ -198,10 +200,10 @@ def _set_on_device(A: np.ndarray, dev: torch.device, resident):
                 f"for a set of {A.shape[0]} on {dev}"
             )
         return resident.graph_input(), 0.0
-    t0 = time.perf_counter()
-    At = torch.from_numpy(np.ascontiguousarray(A, dtype=np.int64)).to(dev)
-    backend.sync(dev)
-    return At, time.perf_counter() - t0
+    with trace.timed("front_end.upload") as sp:
+        At = backend.upload("set", np.ascontiguousarray(A, dtype=np.int64), dev)
+        backend.sync(dev)
+    return At, sp.seconds
 
 
 def device_unitig_sides(A: np.ndarray, k: int, *, device, resident=None) -> np.ndarray:
@@ -217,22 +219,21 @@ def device_unitig_sides(A: np.ndarray, k: int, *, device, resident=None) -> np.n
     dev = resolve_device(device)
     if resident is not None and resident.sides is not None:
         _set_on_device(A, dev, resident)  # the same checks
-        t0 = time.perf_counter()
-        out = resident.sides_host()
+        with trace.timed("front_end.download", prefetched=True) as sp:
+            out = resident.sides_host()
         logger.debug("unitigs: side codes prefetched, download wait %.4f s "
-                     "(%d k-mers, %d B)", time.perf_counter() - t0, n, out.nbytes)
+                     "(%d k-mers, %d B)", sp.seconds, n, out.nbytes)
         return out
     with backend.device_lock(dev):
         At, up_s = _set_on_device(A, dev, resident)
-        t1 = time.perf_counter()
-        sides = dispatch_sides(At, k)
-        backend.sync(dev)
-        t2 = time.perf_counter()
-        out = sides.cpu().numpy()
-        t3 = time.perf_counter()
+        with trace.timed("front_end.device") as dv:
+            sides = dispatch_sides(At, k)
+            backend.sync(dev)
+        with trace.timed("front_end.download") as dl:
+            out = backend.download("side codes", sides)
     logger.debug(
         "unitigs: side codes upload %.4f s, device %.4f s, download %.4f s "
-        "(%d k-mers, %d B, %s)", up_s, t2 - t1, t3 - t2, n, out.nbytes,
+        "(%d k-mers, %d B, %s)", up_s, dv.seconds, dl.seconds, n, out.nbytes,
         "resident" if resident is not None else "uploaded",
     )
     return out
@@ -265,23 +266,24 @@ def device_unitig_succ(
                      "budget %d)", "bounded" if bounded else "one-shot",
                      query_chunk, n, backend.front_end_ceiling(budget), budget)
         At, up_s = _set_on_device(A, dev, resident)
-        t1 = time.perf_counter()
         if bounded:
-            out, download_s = bounded_unitig_succ(At, k, query_chunk)
-            t3 = time.perf_counter()
-            t2 = t3 - download_s
+            with trace.timed("front_end.device", bounded=True) as dv:
+                out, download_s = bounded_unitig_succ(At, k, query_chunk)
+            device_s = dv.seconds - download_s
             down_b = sum(x.nbytes for x in out[:3])  # `both` is made here
         else:
-            out = unitig_succ(At, k, query_chunk)
-            backend.sync(dev)
-            t2 = time.perf_counter()
-            out = tuple(x.cpu().numpy() for x in out)
-            t3 = time.perf_counter()
+            with trace.timed("front_end.device") as dv:
+                out = unitig_succ(At, k, query_chunk)
+                backend.sync(dev)
+            with trace.timed("front_end.download") as dl:
+                out = tuple(backend.download(what, x) for what, x in
+                            zip(("succ", "term_l", "term_r", "both"), out))
+            device_s, download_s = dv.seconds, dl.seconds
             down_b = sum(x.nbytes for x in out)
     logger.debug(
         "unitigs: device front-end upload %.4f s, device %.4f s, "
         "download %.4f s of %d B (%d k-mers, %d query chunks, %s%s)", up_s,
-        t2 - t1, t3 - t2, down_b, n,
+        device_s, download_s, down_b, n,
         -(-n // max(1, query_chunk)), "bounded" if bounded else "one shot",
         ", resident" if resident is not None else "",
     )
@@ -311,22 +313,21 @@ def device_side_tables_directed(
         if query_chunk is None:
             query_chunk = backend.front_end_plan(n, backend.memory_budget(dev))[1]
         At, up_s = _set_on_device(A, dev, resident)
-        t1 = time.perf_counter()
         download_s = 0.0
-        for lo in range(0, n, query_chunk):
-            hi = min(lo + query_chunk, n)
-            rows = side_tables(At, k, False, lo, hi)
-            backend.sync(dev)
-            t = time.perf_counter()
-            for host, (deg, nbr, _) in zip(out, rows):
-                host[0][lo:hi] = deg.cpu().numpy()
-                host[1][lo:hi] = nbr.cpu().numpy()
-            download_s += time.perf_counter() - t
-        t3 = time.perf_counter()
+        with trace.timed("front_end.device", directed=True) as dv:
+            for lo in range(0, n, query_chunk):
+                hi = min(lo + query_chunk, n)
+                rows = side_tables(At, k, False, lo, hi)
+                backend.sync(dev)
+                with trace.timed("front_end.download") as dl:
+                    for host, (deg, nbr, _), side in zip(out, rows, ("out", "in")):
+                        host[0][lo:hi] = backend.download(f"{side} degree", deg)
+                        host[1][lo:hi] = backend.download(f"{side} neighbor", nbr)
+                download_s += dl.seconds
     logger.debug(
         "unitigs: device side tables upload %.4f s, device %.4f s, "
         "download %.4f s (%d k-mers, %d query chunks, directed%s)", up_s,
-        t3 - t1 - download_s, download_s, n, -(-n // query_chunk),
+        dv.seconds - download_s, download_s, n, -(-n // query_chunk),
         ", resident" if resident is not None else "",
     )
     return out

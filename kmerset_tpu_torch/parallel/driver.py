@@ -52,7 +52,6 @@ import json
 import logging
 import math
 import os
-import time
 from typing import Optional, Sequence
 
 import numpy as np
@@ -60,6 +59,7 @@ import torch
 
 from ..core.graph import led_group_selection, permute_groups
 from ..ops import backend
+from ..utils import trace
 from .mesh import (
     Mesh,
     device_identity,
@@ -122,10 +122,10 @@ def _step(name: str, mesh: Mesh):
     the same step (Mesh.check_step)."""
     with mesh.lock():
         mesh.check_step(name)
-        t0 = time.perf_counter()
-        yield
+        with trace.timed("mesh." + name.replace(" ", "_")) as sp:
+            yield
     logger.debug("mesh: %s on %d shards: %.4f s", name, mesh.size,
-                 time.perf_counter() - t0)
+                 sp.seconds)
 
 
 def auto_mesh(device: torch.device) -> Optional[Mesh]:
@@ -171,7 +171,7 @@ def _stride(mesh: Mesh, arr: np.ndarray, fill, dtype=torch.int64):
         part = torch.full((cap,), fill, dtype=dtype)
         lo, hi = min(d * cap, n), min((d + 1) * cap, n)
         part[: hi - lo] = torch.from_numpy(np.ascontiguousarray(arr[lo:hi])).to(dtype)
-        out.append(part.to(dev))
+        out.append(backend.upload("stride block", part, dev))
     return out, cap
 
 
@@ -270,7 +270,8 @@ def _key_blocks(mesh: Mesh, A: np.ndarray, k: int):
     """The local shards' key-range blocks of the sorted set A, on their
     devices, and each block's position in A."""
     idx = np.searchsorted(A, owner_edges(k, mesh.size))
-    blocks = [torch.from_numpy(np.ascontiguousarray(A[idx[d]:idx[d + 1]], dtype=np.int64)).to(dev)
+    blocks = [backend.upload("set block", np.ascontiguousarray(A[idx[d]:idx[d + 1]],
+                                                               dtype=np.int64), dev)
               for d, dev in zip(mesh.local, mesh.devices)]
     return blocks, [int(idx[d]) for d in mesh.local]
 
@@ -418,7 +419,8 @@ def mesh_emit_chains(A: np.ndarray, k: int, succ: np.ndarray,
             lo, hi = min(d * cap, n), min((d + 1) * cap, n)
             first = lo >> 1 if oriented else lo
             last = ((hi - 1) >> 1) + 1 if oriented and hi > lo else hi
-            part = torch.from_numpy(np.ascontiguousarray(A[first:last], dtype=np.int64)).to(dev)
+            part = backend.upload("set block", np.ascontiguousarray(
+                A[first:last], dtype=np.int64), dev)
             ids = torch.arange(cap, dtype=torch.int64, device=dev) + d * cap
             lanes.append([oriented_values(part, first, ids, k, oriented)])
         return lanes
@@ -472,8 +474,10 @@ def mesh_overlap_edges(P: np.ndarray, S: np.ndarray, k: int, *, mesh: Mesh):
         Ps, Ss = [], []
         for d, dev in zip(mesh.local, mesh.devices):
             lo, hi = min(d * ucap, n), min((d + 1) * ucap, n)
-            Ps.append(torch.from_numpy(np.ascontiguousarray(P[lo:hi], dtype=np.int64)).to(dev))
-            Ss.append(torch.from_numpy(np.ascontiguousarray(S[lo:hi], dtype=np.int64)).to(dev))
+            Ps.append(backend.upload("prefix block", np.ascontiguousarray(
+                P[lo:hi], dtype=np.int64), dev))
+            Ss.append(backend.upload("suffix block", np.ascontiguousarray(
+                S[lo:hi], dtype=np.int64), dev))
         ans = sharded_overlap_edges(mesh, Ps, Ss, k, ucap)
         # Each shard's (16, m_d) answers travel unitig-major.
         ans16 = _gather(mesh, [a.t().reshape(-1) for a in ans], None,

@@ -379,14 +379,16 @@ class Mesh:
         if self.group is None:
             if not parts:
                 return torch.empty(0, dtype=dtype).numpy()
-            return torch.cat([p.to("cpu", wire_dtype) for p in parts]).to(dtype).numpy()
+            return torch.cat([torch.from_numpy(backend.download("gather", p.to(wire_dtype)))
+                              for p in parts]).to(dtype).numpy()
         import torch.distributed as dist
 
         lengths = self.all_gather([int(p.shape[0]) for p in parts])
         out = torch.empty(sum(lengths), dtype=wire_dtype)
         ends = [sum(lengths[: self._first[q]]) for q in range(self.n_ranks + 1)]
         if parts:
-            torch.cat([p.to("cpu", wire_dtype) for p in parts],
+            torch.cat([torch.from_numpy(backend.download("gather", p.to(wire_dtype)))
+                       for p in parts],
                       out=out[ends[self.rank]: ends[self.rank + 1]])
         for q in range(self.n_ranks):
             if ends[q + 1] > ends[q]:
@@ -455,7 +457,7 @@ def owner_edges(k: int, n_shards: int) -> np.ndarray:
 
 def _key_owner(edges: np.ndarray, keys: torch.Tensor) -> torch.Tensor:
     """The shard owning each key under owner_edges `edges`."""
-    inner = torch.from_numpy(edges[1:-1]).to(device=keys.device, dtype=keys.dtype)
+    inner = backend.upload("owner edges", edges[1:-1], keys.device, keys.dtype)
     return torch.searchsorted(inner, keys, right=True)
 
 
@@ -488,7 +490,7 @@ def to_owners(mesh: Mesh, owners, lanes, valid=None):
         own = own[idx]
         srt = torch.argsort(own, stable=True)
         idx = idx[srt]
-        cnt = torch.bincount(own, minlength=n).tolist()
+        cnt = backend.download("owner counts", torch.bincount(own, minlength=n)).tolist()
         order.append(idx)
         rows.append(cnt)
         parts.append([list(torch.split(lane[idx], cnt)) for lane in lanes[i]])
@@ -546,9 +548,10 @@ def sharded_count(mesh: Mesh, staged, k: int, canonical: bool,
             parts.append([torch.empty(0, dtype=key_dtype(k), device=dev)] * n)
             continue
         s = count_ops.sorted_window_keys(*st, k, canonical)
-        live = s[: int((s != sent).sum())]
-        inner = torch.from_numpy(edges[1:-1]).to(device=dev, dtype=s.dtype)
-        cuts = [0, *torch.searchsorted(live, inner).tolist(), live.shape[0]]
+        live = s[: int(backend.download("live", (s != sent).sum()))]
+        inner = backend.upload("owner edges", edges[1:-1], dev, s.dtype)
+        cuts = [0, *backend.download("cuts", torch.searchsorted(live, inner)).tolist(),
+                live.shape[0]]
         parts.append([live[a:b] for a, b in zip(cuts, cuts[1:])])
     recv = mesh.all_to_all(parts)
     out = []
@@ -643,7 +646,7 @@ def sharded_unitig_succ(mesh: Mesh, blocks, offs: Sequence[int], k: int,
     owners, lanes, valid = [], [], []
     for (rdeg, rnbr, _), (ldeg, lnbr, _) in rows:
         q = torch.cat([rnbr, lnbr])
-        inner = torch.from_numpy(bounds).to(q.device)
+        inner = backend.upload("bounds", bounds, q.device)
         owners.append(torch.searchsorted(inner, q, right=True))
         lanes.append([q])
         valid.append(torch.cat([rdeg > 0, ldeg > 0]))
@@ -694,7 +697,8 @@ def sharded_pointer_double(mesh: Mesh, succ, labels, cap: int, rounds: int):
             "lab": labels[i] if labels is not None else None,
         })
     for _ in range(rounds):
-        if mesh.psum([int((~x["reached"]).sum()) for x in st]) == 0:
+        if mesh.psum([int(backend.download("unreached", (~x["reached"]).sum()))
+                      for x in st]) == 0:
             break
         recv, routing = to_owners(
             mesh, [x["ptr"] // cap for x in st], [[x["ptr"]] for x in st],
@@ -758,7 +762,8 @@ def render_chains(ends: torch.Tensor, ov: torch.Tensor, k: int) -> torch.Tensor:
     head[1:] = ends[1:] != ends[:-1]
     L = torch.where(head, k, 1)
     off = torch.cumsum(L, 0) - L
-    codes = torch.empty(int(L.sum()), dtype=torch.uint8, device=ends.device)
+    codes = torch.empty(int(backend.download("codes", L.sum())), dtype=torch.uint8,
+                        device=ends.device)
     rest = ~head
     codes[off[rest]] = (ov[rest] & 3).to(torch.uint8)
     j = torch.arange(k, dtype=torch.int64, device=ends.device)
@@ -808,7 +813,7 @@ def sharded_matching(mesh: Mesh, pa, pb, ecap: int, pcap: int):
         })
     owners = [x["ports"] // pcap for x in st]
     big = torch.iinfo(torch.int64).max
-    while mesh.psum([int(x["alive"].sum()) for x in st]) > 0:
+    while mesh.psum([int(backend.download("alive", x["alive"].sum())) for x in st]) > 0:
         # (A) both ports still free?
         recv, routing = to_owners(mesh, owners, [[x["ports"]] for x in st],
                                   [x["alive"].repeat(2) for x in st])
@@ -868,7 +873,7 @@ def sharded_overlap_edges(mesh: Mesh, P, S, k: int, ucap: int):
     table, dups = [], []
     for tk, tv in recv:
         tk, order = torch.sort(tk)
-        dups.append(int((tk[1:] == tk[:-1]).any()))
+        dups.append(int(backend.download("duplicates", (tk[1:] == tk[:-1]).any())))
         table.append((tk, tv[order]))
     if mesh.psum(dups):
         raise ValueError(
@@ -905,7 +910,7 @@ def _live(block: torch.Tensor) -> torch.Tensor:
     """The keys of a sorted block before its sentinel padding (S_SENT for
     int32 keys, SENTINEL for int64: ops/pack.key_sentinel)."""
     sent = S_SENT if block.dtype == torch.int32 else SENTINEL
-    return block[: int((block != sent).sum())]
+    return block[: int(backend.download("live", (block != sent).sum()))]
 
 
 def _xor_all(x: torch.Tensor) -> torch.Tensor:

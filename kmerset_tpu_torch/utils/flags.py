@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import logging
 import os
 import sys
 from typing import List, Optional, Tuple
@@ -25,6 +26,7 @@ from ..core import native
 from ..core.config import CLI_SUPPORTED_K
 from ..parallel.driver import auto_mesh, maybe_init_distributed
 from ..parallel.mesh import Mesh
+from . import trace
 
 TRACE_FILE = "trace.json"
 
@@ -106,7 +108,8 @@ def add_common_flags(
     parser.add_argument(
         "--trace",
         default="",
-        help="capture a torch.profiler trace of the run into this directory",
+        help="capture a torch.profiler trace of the run into this directory"
+        " (trace.json); with --debug it holds the program's spans too",
     )
     if canonical:
         add_bool_flag(parser, "canonical", True, get_flag_message("canonical"))
@@ -169,13 +172,22 @@ def devices_or_exit(args, logger, distributed: bool = False
 
 
 @contextlib.contextmanager
-def trace_context(args, device: torch.device):
-    """With --trace DIR: records CPU activity, and CUDA kernels when
-    `device` is a CUDA device, and writes DIR/trace.json (Chrome trace
-    format) on exit.  A no-op without --trace."""
+def trace_context(args, device: torch.device, cli: str, started: int):
+    """The whole body of one CLI call after device resolution: its root
+    span "cli.<cli>" (utils/trace.py), from `started` (the call's entry,
+    a perf_counter_ns reading, so that argument parsing and device
+    resolution are inside it too), recorded when the "kmerset" logger is
+    at debug level (--debug), which logs the call's spans and counters as
+    one "trace: " line at its end.  With --trace DIR it also
+    records a torch.profiler trace (CPU activity, and CUDA kernels and
+    copies when `device` is a CUDA device) around the call and writes
+    DIR/trace.json (Chrome trace format) on exit; under --debug the
+    program's spans are ranges in it too."""
+    on = logging.getLogger("kmerset").isEnabledFor(logging.DEBUG)
     trace_dir = getattr(args, "trace", "")
     if not trace_dir:
-        yield
+        with trace.root(f"cli.{cli}", on, started):
+            yield
         return
     from torch.profiler import ProfilerActivity, profile
 
@@ -184,5 +196,6 @@ def trace_context(args, device: torch.device):
         activities.append(ProfilerActivity.CUDA)
     os.makedirs(trace_dir, exist_ok=True)
     with profile(activities=activities) as prof:
-        yield
+        with trace.root(f"cli.{cli}", on, started):
+            yield
     prof.export_chrome_trace(os.path.join(trace_dir, TRACE_FILE))

@@ -24,6 +24,7 @@ import os
 import re
 import subprocess
 import sys
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import pytest
@@ -62,18 +63,19 @@ def _start(argv, cwd, env=None) -> subprocess.Popen:
 
 def _finish(procs):
     """[(returncode, output)] of each child, each within CHILD_TIMEOUT_S;
-    a child that outlives it is killed, and so is every other."""
-    out = []
+    a child that outlives it is killed, and so is every other.  Every
+    child's output is read at once: a rank blocked on a full pipe would
+    hold up the collectives of the rank being read."""
     try:
-        for p in procs:
-            text, _ = p.communicate(timeout=CHILD_TIMEOUT_S)
-            out.append((p.returncode, text))
+        with ThreadPoolExecutor(max_workers=len(procs)) as ex:
+            texts = list(ex.map(
+                lambda p: p.communicate(timeout=CHILD_TIMEOUT_S)[0], procs))
     finally:
         for p in procs:
             if p.poll() is None:
                 p.kill()
                 p.communicate()
-    return out
+    return [(p.returncode, text) for p, text in zip(procs, texts)]
 
 
 @pytest.fixture(scope="module")
