@@ -25,8 +25,12 @@ forward, with and without `valid`, at n = 1, below one tile, a ragged
 last tile and 2^24 windows; B3 (the one-pass compaction) at n = 1, below
 one tile, a ragged tile, 5,000,011 and 2^24, keep fractions 0 to 1, 1 to
 3 int32 or int64 lanes, bool and uint8 keep, and views at element offset
-1 (its element-by-element path); and the unitig graph front-end against
-itself on the CPU.  Each kernel is timed at the main path's shapes beside
+1 (its element-by-element path); the unitig graph front-end against
+itself on the CPU; and (phase 4w) kernel W1, the canonical unitig walk
+and emission, stage by stage against its plain version at the assembly
+cell's shape (4.6M k-mers at k = 15), and core/spss.get_unitigs_canonical
+with the device walk against the host walk, byte for byte, at k = 15 and
+23.  Each kernel is timed at the main path's shapes beside
 its bound (the bytes it must move over the card's 3.35 TB/s), its plain
 version, its wrapper's host time per call and, for B3, the one PyTorch
 call that computes the same function (`lane[keep]` per lane), at the
@@ -164,6 +168,14 @@ SCALAR_OPS_PER_S = 67e12
 PACK_OPS_PER_WINDOW = 24
 COMPACT_OPS_PER_ELEMENT = 4
 COMPACT_OPS_PER_LANE_ELEMENT = 12
+# The kernels whose launches the runs count: the tracer's launch.<name>.
+KERNELS = ("B1", "B2", "B3", "W1")
+# The tracer's counts of the canonical builds' sets walked on the card
+# (kernel W1) and on the host, which the runs count beside the launches.
+WALKS = ("walk.device", "walk.host")
+# Each answer of ops/backend.walk_route in this process, (k-mers, on the
+# card), in order: main() puts a spy that changes nothing in its place.
+_ROUTES: list = []
 
 
 def say(phase, msg: str) -> None:
@@ -583,6 +595,121 @@ def check_front_end(torch, rng) -> None:
                f"members): {ms:.4f} ms")
 
 
+def check_walk(torch, rng) -> dict:
+    """Kernel W1 (csrc/walk.cu: the canonical unitig walk and emission)
+    against its plain version on the card, stage by stage, at the
+    assembly cell's shape: a genome of E. coli K-12's 4,641,652 bases as
+    10 kb records, counted at k = 15, with its front-end's arrays.  Each
+    stage is timed by CUDA events, beside the bytes bound of the whole
+    walk, the plain version's time and the wrapper's wall (chain_walk and
+    emit_strings with their downloads), and the longest chain.  Then
+    core/spss.get_unitigs_canonical on the card with the device walk
+    against the same call with the host walk, byte for byte, at k = 15
+    and 23 on that genome, with the walk.device and walk.host counters."""
+    from unittest import mock
+
+    from kmerset_tpu_torch.core import spss
+    from kmerset_tpu_torch.core.kmer_set import KmerSet
+    from kmerset_tpu_torch.ops import backend, unitigs, walk
+    from kmerset_tpu_torch.ops import count as count_ops
+    from kmerset_tpu_torch.utils import trace
+
+    n_bases = 4_641_652
+    codes = rng.integers(0, 4, n_bases, dtype=np.uint8)
+    offsets = np.append(np.arange(0, n_bases, 10_000), n_bases)
+    row = {}
+    for k in (15, 23):
+        staged = backend.stage(codes, offsets, k, "cuda")
+        A = count_ops.count_to_set_frag(*staged, k, True, 1)[0].to(torch.int64)
+        succ, term_l, term_r, both = unitigs.unitig_succ(A, k)
+        if k == 15:
+            starts, n_right = walk.starts_of(term_l, term_r)
+            bad, pbad = (torch.zeros(1, dtype=torch.int32, device="cuda")
+                         for _ in range(2))
+            ends, lens = walk.measure(succ, starts, bad)
+            _same_as_plain(torch, "W1 measure", (ends, lens),
+                           walk.measure_plain(succ, starts, pbad))
+            ranked = walk.rank(A, starts, n_right, ends, lens, k, bad)
+            plain = walk.rank_plain(A, starts, n_right, ends, lens, k, pbad)
+            rec = ranked[0] >= 0
+            _same_as_plain(torch, "W1 rank",
+                           (*ranked[:1], ranked[1][rec], *ranked[2:]),
+                           (*plain[:1], plain[1][rec], *plain[2:]))
+            ch = walk.chain_walk(succ, term_l, term_r, A, k)
+            em = walk.emit_strings(ch, succ, both, A, k)
+            iso = torch.nonzero(both).squeeze(1)
+            bufs = (torch.empty_like(em.codes), torch.empty_like(em.offsets),
+                    torch.zeros_like(em.covered))
+            walk.emit_plain(A, succ, k, ch, iso, *bufs, pbad)
+            _same_as_plain(torch, "W1 emit", em[:3], bufs)
+            if int(bad.item()) or int(pbad.item()):
+                raise AssertionError("W1 flagged the front-end's own arrays")
+            n = A.shape[0]
+            stage_ms = (
+                time_ms(lambda: walk.measure(succ, starts, bad), 5, 3),
+                time_ms(lambda: walk.rank(A, starts, n_right, ends, lens, k, bad), 5, 3),
+                time_ms(lambda: walk.emit(A, succ, k, ch, iso, *bufs, bad), 5, 3))
+            wall = []
+            for _ in range(5):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                walk.emit_strings(walk.chain_walk(succ, term_l, term_r, A, k),
+                                  succ, both, A, k)
+                wall.append((time.perf_counter() - t0) * 1e3)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ends_p, lens_p = walk.measure_plain(succ, starts, pbad)
+            walk.rank_plain(A, starts, n_right, ends_p, lens_p, k, pbad)
+            walk.emit_plain(A, succ, k, ch, iso, *bufs, pbad)
+            torch.cuda.synchronize()
+            plain_ms = (time.perf_counter() - t0) * 1e3
+            n_bytes = (succ.nbytes + A.nbytes + starts.nbytes + em.codes.nbytes
+                       + em.offsets.nbytes + em.covered.nbytes)
+            bound = bound_ms(n_bytes, 0)
+            longest = int(lens.max())
+            say("4w", f"W1 walk k={k}: {n} k-mers, {starts.shape[0]} starts, "
+                      f"{ch.n_chains} chains, {iso.shape[0]} isolated, "
+                      f"{em.codes.shape[0]} code bytes, longest chain {longest} "
+                      f"nodes; measure, rank, emit equal to plain")
+            say("4w", f"W1 device ms: measure {stage_ms[0]:.4f}, rank "
+                      f"{stage_ms[1]:.4f}, emit {stage_ms[2]:.4f} (sum "
+                      f"{sum(stage_ms):.4f}); {stage_ms[0] / longest * 1e6:.1f} ns "
+                      f"a step of the longest chain; wrapper wall median "
+                      f"{statistics.median(wall):.4f} ms; bytes bound "
+                      f"{bound[0]:.4f} ms ({n_bytes} B); plain {plain_ms:.1f} ms")
+            row = {"name": "W1 walk: chain_walk, emit_strings", "route": "cuda",
+                   "source": "kmerset_tpu_torch/csrc/walk.cu",
+                   "replaces": "native/kmerio.c kmerio_chain_pairs, "
+                               "kmerio_chain_emit, kmerio_emit_kmer_chains "
+                               "(no Pallas kernel)",
+                   "max_abs_err": 0, "ms": sum(stage_ms), "plain_ms": plain_ms,
+                   "bound_ms": bound[0], "bound_by": "latency of the longest "
+                   f"chain ({longest} nodes)", "library_ms": None,
+                   "wall_ms": statistics.median(wall)}
+        ks = KmerSet(k, A.cpu().numpy(), _sorted=True)
+        before = dict(trace.counts())
+        got = spss.get_unitigs_canonical(ks, device="cuda")
+        with mock.patch.object(backend, "WALK_MIN_KMERS", 1 << 62):
+            want = spss.get_unitigs_canonical(ks, device="cuda")
+        moved = {c: trace.counts().get(c, 0) - before.get(c, 0)
+                 for c in ("walk.device", "walk.host", "launch.W1")}
+        if moved != {"walk.device": 1, "walk.host": 1, "launch.W1": 3}:
+            raise AssertionError(f"W1 k={k}: routes {moved}")
+        if not (np.array_equal(got.codes, want.codes)
+                and np.array_equal(got.offsets, want.offsets)):
+            raise AssertionError(f"W1 k={k}: the device walk's unitigs differ "
+                                 "from the host walk's")
+        say("4w", f"get_unitigs_canonical k={k}: {len(got)} unitigs, device "
+                  "walk byte-identical to the host walk")
+    return row
+
+
+def _same_as_plain(torch, what: str, got, want) -> None:
+    for i, (g, w) in enumerate(zip(got, want)):
+        if g.shape != w.shape or not torch.equal(g, w):
+            raise AssertionError(f"{what}: output {i} differs from the plain version")
+
+
 _BASES = np.frombuffer(b"ACGT", dtype=np.uint8)
 
 
@@ -617,12 +744,52 @@ def write_reads_fasta(path: str, rng, genome_bases: int, coverage: float) -> Non
 
 
 def _launch_counts() -> dict:
-    """The process's launches of kernels B1, B2 and B3 so far: the
-    tracer's counters launch.B1, launch.B2 and launch.B3."""
+    """The process's launches of each kernel of KERNELS so far (the
+    tracer's counters launch.B1, launch.B2, launch.B3 and launch.W1) and
+    its sets walked each way (walk.device, walk.host)."""
     from kmerset_tpu_torch.utils import trace
 
     c = trace.counts()
-    return {n: c.get(f"launch.{n}", 0) for n in ("B1", "B2", "B3")}
+    return {**{n: c.get(f"launch.{n}", 0) for n in KERNELS},
+            **{w: c.get(w, 0) for w in WALKS}}
+
+
+def _spy_walk_routes() -> None:
+    """ops/backend.walk_route, recording each answer in _ROUTES."""
+    from kmerset_tpu_torch.ops import backend
+
+    real = backend.walk_route
+
+    def spy(n, device):
+        card = real(n, device)
+        _ROUTES.append((n, card))
+        return card
+
+    backend.walk_route = spy
+
+
+def _check_walks(tag: str, moved: dict, since: int, host: int = 0,
+                 bounded: int = 0) -> int:
+    """The canonical builds' walks of a run that started when _ROUTES held
+    `since` answers and counted `moved` (_launches_since): walk.device
+    must be the sets walk_route sent to the card, and walk.host those it
+    kept on the host plus `host` sets built on a route that never asks it
+    (a mesh, the slow link).  Each set it kept is below WALK_MIN_KMERS,
+    but for `bounded` sets above the front-end's one-shot ceiling.  So a
+    set that W1 refused, or that took the host walk on the card's route,
+    fails the run.  Returns the sets walked on the card."""
+    from kmerset_tpu_torch.ops import backend
+
+    routes = _ROUTES[since:]
+    card = sum(1 for _, c in routes if c)
+    large = [n for n, c in routes if not c and n >= backend.WALK_MIN_KMERS]
+    want = {"walk.device": card, "walk.host": len(routes) - card + host}
+    got = {w: moved[w] for w in WALKS}
+    if got != want or len(large) != bounded:
+        raise AssertionError(f"{tag}: sets walked {got}, routes {want} with "
+                             f"{len(large)} of at least WALK_MIN_KMERS k-mers "
+                             f"on the host ({bounded} bounded)")
+    return card
 
 
 def _launches_since(before: dict) -> dict:
@@ -780,7 +947,7 @@ def main_path_run(torch, tag: str, fasta: str, k: int, cutoff: int,
     cap = _Capture()
     log = logging.getLogger(CLI_LOGGER)
     log.addHandler(cap)
-    launches0 = _launch_counts()
+    launches0, routes0 = _launch_counts(), len(_ROUTES)
     torch.cuda.reset_peak_memory_stats()
     if link is not None:
         os.environ["KMERSET_TPU_LINK"] = link
@@ -814,7 +981,15 @@ def main_path_run(torch, tag: str, fasta: str, k: int, cutoff: int,
             raise AssertionError(f"{tag}: kernel {name} was not launched")
     spss = _phase_times(msgs)
     steps = _mesh_steps(msgs)
-    side_route = link == "slow" and "--canonical=false" not in extra
+    canonical = "--canonical=false" not in extra
+    side_route = link == "slow" and canonical
+    # One canonical set: on one device and the fast link walked by W1,
+    # else by the host; the directed build counts no walk.
+    on_card = canonical and not on_mesh and not side_route
+    if _check_walks(tag, launches, routes0,
+                    host=int(canonical and not on_card)) != int(on_card):
+        raise AssertionError(f"{tag}: the canonical build did not walk on the "
+                             "card (kernel W1)")
     if len(spss) != len(_PHASES) + (0 if on_mesh or side_route else 3):
         raise AssertionError(f"{tag}: the device front-end did not run: {spss}")
     if on_mesh:
@@ -1420,7 +1595,7 @@ def run_m(torch, tag: str, k: int, fastas) -> dict:
     sets = [os.path.join(WORK, f"m{i}_k{k}.txt") for i in range(len(fastas))]
     port_dir, ref_dir = (os.path.join(WORK, f"M{k}_{d}") for d in ("port", "ref"))
     rtag = f"m{k}"
-    launches0 = _launch_counts()
+    launches0, routes0 = _launch_counts(), len(_ROUTES)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     for fa, out in zip(fastas, sets):
@@ -1483,6 +1658,9 @@ def run_m(torch, tag: str, k: int, fastas) -> dict:
     for name in ("B1" if k == 15 else "B2", "B3"):
         if launches[name] <= 0:
             raise AssertionError(f"{tag}: kernel {name} was not launched")
+    # The strains' builds and spss-benchmark's set at least on the card.
+    if _check_walks(tag, launches, routes0) < len(fastas) + 1:
+        raise AssertionError(f"{tag}: sets walked {launches}")
     msgs = [m for _, m in comp_log]
     builds = [float(m.group(1)) for m in map(_DEFERRED.search, msgs) if m]
     oracle = [m.groups() for m in map(_ORACLE.search, msgs) if m]
@@ -1533,8 +1711,9 @@ _RANK_CLI = (
     "t1 = time.perf_counter()\n"
     "cli.main(sys.argv[2:])\n"
     "print(json.dumps({'import_s': t1 - t0, 'cli_s': time.perf_counter() - t1,\n"
-    "                  'launches': {n: trace.counts().get('launch.' + n, 0)\n"
-    "                               for n in ('B1', 'B2', 'B3')}}))\n"
+    "                  'launches': {n: trace.counts().get(\n"
+    "                      n if '.' in n else 'launch.' + n, 0)\n"
+    f"                               for n in {KERNELS + WALKS!r}}}}}))\n"
 )
 GROUP_TIMEOUT_S = 600
 
@@ -1626,6 +1805,9 @@ def group_build(tag: str, fasta: str, k: int, ref, kernels, devices,
         for name in kernels:
             if x["launches"][name] <= 0:
                 raise AssertionError(f"{tag}: rank {r} launched no {name}")
+        # Every rank walks the set once, on the host, as a mesh does.
+        if [x["launches"][w] for w in WALKS] != [0, 1]:
+            raise AssertionError(f"{tag}: rank {r} walked {x['launches']}")
     say(tag, f"--k {k} --cutoff 1 --check, {len(devices)} ranks on --device "
              f"{' / '.join(devices)} ({n} shards): every rank's dump "
              f"byte-identical to the reference CLI's; {mesh_line!r}")
@@ -1636,7 +1818,7 @@ def group_build(tag: str, fasta: str, k: int, ref, kernels, devices,
                                              three["steps"].items())
                  + f"), one device {single_s:.3f} s")
     return {"launches": {name: sum(x["launches"][name] for x in ranks)
-                         for name in ("B1", "B2", "B3")}}
+                         for name in KERNELS + WALKS}}
 
 
 def serial_compress(m: dict, devices: str) -> float:
@@ -1685,6 +1867,8 @@ def group_compress(tag: str, m: dict, devices, mesh_line: str,
         for name in ("B1", "B3"):
             if x["launches"][name] <= 0:
                 raise AssertionError(f"{tag}: rank {r} launched no {name}")
+        if x["launches"]["walk.device"] != 0 or x["launches"]["walk.host"] <= 0:
+            raise AssertionError(f"{tag}: rank {r} walked {x['launches']}")
     say(tag, f"--k 15 --seed 1 --workers 4, {len(devices)} ranks on --device "
              f"{' / '.join(devices)} ({n} shards): every rank's directory "
              f"({len(names)} files) and DOT byte-identical to the reference "
@@ -1696,7 +1880,7 @@ def group_compress(tag: str, m: dict, devices, mesh_line: str,
              + f") and {three['serial_s']:.3f} s with --workers 1 (item "
              f"order, as in a group), one device {m['port_s']['compress']:.3f} s")
     return {"launches": {name: sum(x["launches"][name] for x in ranks)
-                         for name in ("B1", "B2", "B3")}}
+                         for name in KERNELS + WALKS}}
 
 
 # The graph steps a deferred SPSS build takes on the mesh (parallel/
@@ -1720,7 +1904,7 @@ def run_m_mesh(torch, tag: str, k: int, m: dict, devices: str) -> dict:
     sets, ref_dir = ref["sets"], ref["dir"]
     port_dir = os.path.join(WORK, f"M{k}_mesh_{devices.count(',') + 1}")
     dev = ["--device", devices, "--k", K]
-    launches0 = _launch_counts()
+    launches0, routes0 = _launch_counts(), len(_ROUTES)
     torch.cuda.reset_peak_memory_stats()
     _, comp_log, comp_s = _capture_run(kmerset_multiple_compress, [
         *dev, "--seed", "1", "--workers", "4", "--out", port_dir,
@@ -1753,6 +1937,10 @@ def run_m_mesh(torch, tag: str, k: int, m: dict, devices: str) -> dict:
     for name in ("B1" if k == 15 else "B2", "B3"):
         if launches[name] <= 0:
             raise AssertionError(f"{tag}: kernel {name} was not launched")
+    # A mesh keeps the host walk and never asks walk_route.
+    _check_walks(tag, launches, routes0, host=launches["walk.host"])
+    if launches["walk.host"] <= 0:
+        raise AssertionError(f"{tag}: sets walked {launches}")
     msgs = [msg for _, msg in comp_log]
     oracle = [m_.groups() for m_ in map(_ORACLE.search, msgs) if m_]
     steps = _mesh_steps(msgs)
@@ -2417,7 +2605,7 @@ def genome_run(torch, tag: str, fasta: str, k: int, cutoff: int,
     log.addHandler(cap)
     log.addHandler(peaks)
     backend.memory_budget = spy
-    launches0 = _launch_counts()
+    launches0, routes0 = _launch_counts(), len(_ROUTES)
     held0 = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     rss_before = _max_rss_gib()
@@ -2455,6 +2643,11 @@ def genome_run(torch, tag: str, fasta: str, k: int, cutoff: int,
     if chunked and c_chunks < 2:
         raise AssertionError(f"{tag}: the count ran in one shot: {count_line}")
     front_line = _front_plan(tag, n, fronts[0], budgets)
+    # The one-shot front-end's set is walked on the card, the bounded
+    # one's on the host.
+    bounded = int(fronts[0][0] == "bounded")
+    if _check_walks(tag, launches, routes0, bounded=bounded) != 1 - bounded:
+        raise AssertionError(f"{tag}: sets walked {launches}")
     decode_line = _count_plan(tag, k, plans[1], budgets, merges)
     front_msg = next(m for m in msgs if _FRONT_DOWN.fullmatch(m))
     resident = front_msg.endswith("resident)")
@@ -2660,6 +2853,7 @@ def main() -> int:
     log.addHandler(echo)
     environment(torch)
     build_kernels()
+    _spy_walk_routes()
     fresh_cli_process()
     rng = np.random.default_rng(SEED)
     kernels = [
@@ -2668,6 +2862,8 @@ def main() -> int:
         check_compact(torch, rng),
     ]
     check_front_end(torch, rng)
+    # Its own generator: the later phases' inputs do not depend on it.
+    kernels.append(check_walk(torch, np.random.default_rng(SEED + 4)))
 
     fasta_a = os.path.join(WORK, "genome.fa")
     write_genome_fasta(fasta_a, rng, 1 << 24)
@@ -2778,6 +2974,7 @@ def main() -> int:
         kern["launches"] = sum(run["launches"][name] for run in runs)
         if kern["launches"] <= 0:
             raise AssertionError(f"kernel {name} was not launched by the runs")
+    walks = {w: sum(run["launches"][w] for run in runs) for w in WALKS}
     if "jax" in sys.modules:
         raise AssertionError("jax was imported during the port's run")
     ref_mods = [m for m in sys.modules
@@ -2789,6 +2986,7 @@ def main() -> int:
            "phase 21's slow-link runs and phase 22's runs M19, M23, G23 and "
            "R19: " + ", ".join(
         f"{k['name'].split()[0]} {k['launches']}" for k in kernels)
+        + "; sets walked " + ", ".join(f"{w} {v}" for w, v in walks.items())
         + "; neither jax nor kmerset_tpu in sys.modules; "
         f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)

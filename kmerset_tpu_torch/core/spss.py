@@ -45,7 +45,10 @@ The port's own editions:
   the host (native.succ_from_sides).  The set's resident handle
   (KmerSet.device, validated as the reference does, :586-592) stands in
   for the upload on one device; a mesh ignores it.  The chain walk and
-  string emission half (:653-730) follows the reference line for line;
+  string emission half (:653-730) follows the reference line for line,
+  except where backend.walk_route sends it to the card (_device_walk,
+  kernel W1 of ops/walk.py: the same strings from the front-end's arrays
+  left there);
 - get_unitigs (:733-770): its directed side tables are built on the
   device (ops/unitigs.device_side_tables_directed, from the resident
   handle where there is a valid one, :742-746) or on the mesh
@@ -70,6 +73,7 @@ from typing import List, Tuple
 import numpy as np
 
 from ..ops import backend
+from ..ops import walk as walk_ops
 from ..ops.unitigs import (
     device_side_tables_directed,
     device_unitig_sides,
@@ -550,11 +554,44 @@ def _resident(kmer_set: KmerSet, device):
     return res
 
 
+def _device_walk(A: np.ndarray, k: int, succ, term_l, term_r, both, At):
+    """The canonical unitigs of the host walk, walked and emitted on the
+    device by kernel W1 (ops/walk.py) from the front-end's arrays there
+    (At: the set's tensor), in the same phases and debug lines; only the
+    strings, and only where pure cycles are left the successor and the
+    covered entities, are downloaded.  Raises where W1 refuses succ: the
+    front-end's arrays keep the chain contract, so a refusal is a fault
+    of the device walk, and no host walk hides it."""
+    with backend.device_lock(succ.device):
+        with _phase("spss.chain_walk", "unitigs: chain walk"):
+            chains = walk_ops.chain_walk(succ, term_l, term_r, At, k)
+        if chains is None:
+            raise RuntimeError("kernel W1 refused the front-end's successor (measure/rank)")
+        with _phase("spss.emission", "unitigs: emission + cycles"):
+            out = walk_ops.emit_strings(chains, succ, both, At, k)
+            if out is None:
+                raise RuntimeError("kernel W1 refused the front-end's successor (emit)")
+            parts = [PackedStrings(backend.download("unitig codes", out.codes),
+                                   backend.download("unitig offsets", out.offsets))]
+            if out.n_covered < A.shape[0]:
+                # Pure cycles, which W1 does not walk: the host's cycle
+                # walk over the successor, as the host build runs it.
+                visited = backend.download("covered", out.covered).view(bool)
+                parts.append(_walk_cycles(
+                    A, k, backend.download("succ", succ), visited, oriented=True))
+    trace.add("walk.device")
+    return _concat_packed(parts)
+
+
 def get_unitigs_canonical(kmer_set: KmerSet, *, device, mesh=None) -> PackedStrings:
     """Maximal non-branching paths of the bidirected de Bruijn graph
     (reference: lib/core/spss.h:231-615), with the graph front-end on
     `device`, or on `mesh` with the chain walk and emission there too.
-    Requires odd k, as the reference does."""
+    On a CUDA device with no mesh, from backend.WALK_MIN_KMERS k-mers and
+    where the front-end runs in one shot, the chain walk and emission run
+    there too (_device_walk, kernel W1), else on the host; the counters
+    walk.device and walk.host count the sets walked each way.  Requires
+    odd k, as the reference does."""
     A = kmer_set.kmers
     k = kmer_set.k
     if k % 2 == 0:
@@ -567,6 +604,7 @@ def get_unitigs_canonical(kmer_set: KmerSet, *, device, mesh=None) -> PackedStri
         return PackedStrings.empty()
 
     on_mesh = mesh_driver.should_use_mesh_graph(mesh, n)
+    device_walk = False
     with _phase("spss.front_end", "unitigs: device front-end"):
         if on_mesh:
             # Sharded side tables + mate exchange + successor assembly.
@@ -588,9 +626,15 @@ def get_unitigs_canonical(kmer_set: KmerSet, *, device, mesh=None) -> PackedStri
             term_l = (sides & 16).astype(bool)
             both = term_l & term_r
         else:
-            succ, term_l, term_r, both = device_unitig_succ(
-                A, k, device=device, resident=_resident(kmer_set, device)
+            device_walk = mesh is None and backend.walk_route(n, device)
+            front = device_unitig_succ(
+                A, k, device=device, resident=_resident(kmer_set, device),
+                keep=device_walk,
             )
+            succ, term_l, term_r, both = front[:4]
+    if device_walk:
+        return _device_walk(A, k, *front)
+    trace.add("walk.host")
     with _phase("spss.chain_walk", "unitigs: chain walk"):
         starts_r_exit = np.flatnonzero(term_l & ~term_r) * 2
         starts_l_exit = np.flatnonzero(term_r & ~term_l) * 2 + 1
@@ -673,6 +717,7 @@ def get_unitigs(kmer_set: KmerSet, *, device, mesh=None) -> PackedStrings:
         return PackedStrings.empty()
 
     on_mesh = mesh_driver.should_use_mesh_graph(mesh, n)
+    device_walk = False
     with _phase("spss.front_end", "unitigs: device front-end"):
         if on_mesh:
             (outdeg, nxt, _), (indeg, prv, _) = mesh_driver.mesh_side_tables(

@@ -141,6 +141,16 @@ SIGNATURES = {
     # src0-2, dst0-2, width0-2, n_lanes, keep, n, scratch, scratch_words,
     # n_sel, stream
     "kmerset_compact": ([_P] * 6 + [_I32] * 4 + [_P, _I64, _P, _I64, _P, _P], _I32),
+    # succ, n_nodes, starts, ns, ends, lens, bad, stream
+    "kmerset_walk_measure": ([_P, _I64, _P, _I64, _P, _P, _P, _P], _I32),
+    # A, starts, ns, n_right, ends, lens, k, bad, rank, kept, before,
+    # batch_count, batch_bytes, stream
+    "kmerset_walk_rank": ([_P, _P, _I64, _I64, _P, _P, _I32] + [_P] * 7, _I32),
+    # A, succ, n_nodes, k, ns, rank, kept, lens, before, batch_first,
+    # batch_at, iso, n_iso, n_chains, chain_bytes, codes, offsets, covered,
+    # bad, stream
+    "kmerset_walk_emit": ([_P, _P, _I64, _I32, _I64] + [_P] * 7 + [_I64] * 3
+                          + [_P] * 5, _I32),
     "kmerset_error_string": ([_I32], ctypes.c_char_p),
 }
 

@@ -92,6 +92,15 @@ DEVICE_MEMORY_SHARE = 0.5
 # Planning budget on the CPU, where a run shares the host's memory.
 HOST_BUDGET = 2 << 30
 
+# Fewest k-mers from which the canonical build on a CUDA device walks its
+# chains and emits its strings there (kernel W1, ops/walk.py) instead of
+# downloading the front-end's successor for the host walk.  W1 costs the
+# longest chain's dependent loads, and below it, on sets of 10 kb records
+# whose chains are the records, the host walk with the download took less
+# time (65k k-mers: 0.67-0.75x; 131k: 0.93-1.48x; 262k: 1.3-2.5x; one
+# H100, kmerset_tpu_torch/tools/time_walk.py, PERF.md section 6).
+WALK_MIN_KMERS = 1 << 17
+
 # Keys from which device_count downloads its keys gap-encoded on a slow
 # link (reference backend.py:691).
 DELTA_MIN_KEYS = 1 << 20
@@ -172,6 +181,19 @@ def side_code_route(n: int, device) -> bool:
     gate, backend.py:755-765)."""
     return (0 < n <= native.MAX_SIDES_KMERS and _slow_link(device)
             and host_library_loaded())
+
+
+def walk_route(n: int, device) -> bool:
+    """Whether the canonical build of n k-mers on `device` walks its
+    chains on the device (kernel W1, ops/walk.py): on CUDA, from
+    WALK_MIN_KMERS k-mers, with the native library loaded (W1 reproduces
+    its walk's order, and its cycle walk finishes a set that has pure
+    cycles), where the front-end plans one shot within the device's
+    memory budget (front_end_plan), so that its arrays stay whole on the
+    device for W1."""
+    return (torch.device(device).type == "cuda" and n >= WALK_MIN_KMERS
+            and host_library_loaded()
+            and not front_end_plan(n, memory_budget(device))[0])
 
 
 def memory_budget(device) -> int:

@@ -9,8 +9,9 @@ device up to a ceiling of the memory budget, and above it a bounded mode
 that keeps only the set and its degrees there.  Orientation
 convention of core/spss.py: node u = (entity << 1) | o, o = 0 exits the
 right side, o = 1 the left; mirror(u) = u ^ 1.  The chain walk and the
-string emission stay on the host (core/spss.py), which needs exactly
-these arrays.  The directed graph's side tables (device_side_tables_
+string emission take exactly these arrays: on the device (kernel W1,
+ops/walk.py) where device_unitig_succ keeps them there, else on the host
+(core/spss.py).  The directed graph's side tables (device_side_tables_
 directed) are built on the device the same way, in query chunks, for
 the host's start and end tests.
 
@@ -241,8 +242,8 @@ def device_unitig_sides(A: np.ndarray, k: int, *, device, resident=None) -> np.n
 
 def device_unitig_succ(
     A: np.ndarray, k: int, *, device, query_chunk: Optional[int] = None,
-    resident=None,
-) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+    resident=None, keep: bool = False,
+) -> tuple:
     """unitig_succ of the host array A (sorted unique canonical int64
     k-mers) on `device`, as host arrays: (succ int64, term_l, term_r,
     both bool).  The plan comes from the device's backend.memory_budget
@@ -252,14 +253,20 @@ def device_unitig_succ(
     the device once (the resident handle's tensor, else A uploaded) and
     its side tables are built in query chunks of `query_chunk` k-mers, by
     default what the budget leaves beside the mode's whole-set arrays;
-    the result is the same in every plan.  Logs the plan (mode, query
-    chunk, ceiling and budget), then the upload, device and download
-    times, the chunk count and the mode at debug level."""
+    the result is the same in every plan.  `keep` is the caller's plan
+    of one shot for the device walk (backend.walk_route): the one-shot
+    mode is taken, nothing is downloaded, and the four arrays come back
+    as tensors on the device with the set's tensor fifth (ops/walk.py's
+    input).  Logs
+    the plan (mode, query chunk, ceiling and budget), then the upload,
+    device and download times and bytes, the chunk count and the mode at
+    debug level."""
     n = int(A.shape[0])
     dev = resolve_device(device)
     with backend.device_lock(dev):
         budget = backend.memory_budget(dev)
         bounded, planned = backend.front_end_plan(n, budget)
+        bounded = bounded and not keep
         if query_chunk is None:
             query_chunk = planned
         logger.debug("unitigs: %s, query chunk %d of %d k-mers (ceiling %d, "
@@ -275,11 +282,15 @@ def device_unitig_succ(
             with trace.timed("front_end.device") as dv:
                 out = unitig_succ(At, k, query_chunk)
                 backend.sync(dev)
-            with trace.timed("front_end.download") as dl:
-                out = tuple(backend.download(what, x) for what, x in
-                            zip(("succ", "term_l", "term_r", "both"), out))
-            device_s, download_s = dv.seconds, dl.seconds
-            down_b = sum(x.nbytes for x in out)
+            device_s, download_s, down_b = dv.seconds, 0.0, 0
+            if keep:
+                out = (*out, At)
+            else:
+                with trace.timed("front_end.download") as dl:
+                    out = tuple(backend.download(what, x) for what, x in
+                                zip(("succ", "term_l", "term_r", "both"), out))
+                download_s = dl.seconds
+                down_b = sum(x.nbytes for x in out)
     logger.debug(
         "unitigs: device front-end upload %.4f s, device %.4f s, "
         "download %.4f s of %d B (%d k-mers, %d query chunks, %s%s)", up_s,
