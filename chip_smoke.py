@@ -50,7 +50,9 @@ byte-identical to that run's reference dump.  Then it checks the out-of-core pat
 chunked count of run A's input at k = 15, 23 and 31 and the decode of run
 C's dump, each equal to its one-shot result, with the bytes per window
 behind the memory ceiling measured; the front-end in query chunks and in
-its bounded mode, equal to one shot, with its bytes per k-mer measured),
+its bounded mode, equal to one shot, with its bytes per k-mer measured,
+and the device walk from the bounded mode's rows kept on the card, its
+bytes per k-mer against WALK_BYTES_PER_KMER),
 each mesh program (count, front-end, pointer doubling, chain grouping,
 emission, overlap edges, matching) at 1 and 4 shards of one card on run
 A's and run C's inputs and sets against the single-device or host
@@ -102,9 +104,11 @@ device memory and the pooling allocator's state.  Phase 22 runs the
 multi-set CLIs at k = 19 and 23 (runs M19 and M23, on run M's strains)
 against the reference's, then kmerset-build --check at genome scale at
 the card's natural memory budget, nothing forced: G23 (a 2^28-base
-genome as 10 kb reads, k = 23) and R19 (8x coverage in 2 kb reads of
-both strands of a 2^27-base genome, k = 19, cutoff 2, above the count's
-one-shot ceiling).  Each run's count, front-end and check plans must be
+genome as 10 kb reads, k = 23, above the front-end's one-shot ceiling:
+its bounded mode keeps the rows on the card and W1 walks them, counted
+in walk.bounded) and R19 (8x coverage in 2 kb reads of both strands of a
+2^27-base genome, k = 19, cutoff 2, above the count's one-shot
+ceiling).  Each run's count, front-end and check plans must be
 those that window_ceiling and front_end_plan give at a budget
 memory_budget returned during the run (backend.count_plan's and the
 front-end's decisions), with as many chunks merged as planned; R19's
@@ -173,6 +177,10 @@ KERNELS = ("B1", "B2", "B3", "W1")
 # The tracer's counts of the canonical builds' sets walked on the card
 # (kernel W1) and on the host, which the runs count beside the launches.
 WALKS = ("walk.device", "walk.host")
+# Of those on the card, the sets W1 walked from the bounded front-end.
+BOUNDED_WALKS = "walk.bounded"
+# Every counter a run reports under "launches", the process-group ranks' too.
+COUNTED = (*KERNELS, *WALKS, BOUNDED_WALKS)
 # Each answer of ops/backend.walk_route in this process, (k-mers, on the
 # card), in order: main() puts a spy that changes nothing in its place.
 _ROUTES: list = []
@@ -746,12 +754,12 @@ def write_reads_fasta(path: str, rng, genome_bases: int, coverage: float) -> Non
 def _launch_counts() -> dict:
     """The process's launches of each kernel of KERNELS so far (the
     tracer's counters launch.B1, launch.B2, launch.B3 and launch.W1) and
-    its sets walked each way (walk.device, walk.host)."""
+    its sets walked each way (walk.device, walk.host), and of those on
+    the card the ones from the bounded front-end (walk.bounded)."""
     from kmerset_tpu_torch.utils import trace
 
     c = trace.counts()
-    return {**{n: c.get(f"launch.{n}", 0) for n in KERNELS},
-            **{w: c.get(w, 0) for w in WALKS}}
+    return {n: c.get(n if "." in n else f"launch.{n}", 0) for n in COUNTED}
 
 
 def _spy_walk_routes() -> None:
@@ -768,16 +776,16 @@ def _spy_walk_routes() -> None:
     backend.walk_route = spy
 
 
-def _check_walks(tag: str, moved: dict, since: int, host: int = 0,
-                 bounded: int = 0) -> int:
+def _check_walks(tag: str, moved: dict, since: int, host: int = 0) -> int:
     """The canonical builds' walks of a run that started when _ROUTES held
     `since` answers and counted `moved` (_launches_since): walk.device
     must be the sets walk_route sent to the card, and walk.host those it
     kept on the host plus `host` sets built on a route that never asks it
-    (a mesh, the slow link).  Each set it kept is below WALK_MIN_KMERS,
-    but for `bounded` sets above the front-end's one-shot ceiling.  So a
-    set that W1 refused, or that took the host walk on the card's route,
-    fails the run.  Returns the sets walked on the card."""
+    (a mesh, the slow link).  Each set it kept is below WALK_MIN_KMERS:
+    the walk's own ceiling (backend.walk_ceiling) lies far above every
+    set here.  So a set that W1 refused, or that took the host walk on
+    the card's route, fails the run.  Returns the sets walked on the
+    card."""
     from kmerset_tpu_torch.ops import backend
 
     routes = _ROUTES[since:]
@@ -785,10 +793,10 @@ def _check_walks(tag: str, moved: dict, since: int, host: int = 0,
     large = [n for n, c in routes if not c and n >= backend.WALK_MIN_KMERS]
     want = {"walk.device": card, "walk.host": len(routes) - card + host}
     got = {w: moved[w] for w in WALKS}
-    if got != want or len(large) != bounded:
+    if got != want or large:
         raise AssertionError(f"{tag}: sets walked {got}, routes {want} with "
                              f"{len(large)} of at least WALK_MIN_KMERS k-mers "
-                             f"on the host ({bounded} bounded)")
+                             "on the host")
     return card
 
 
@@ -1199,6 +1207,7 @@ def check_out_of_core(torch, fasta_a: str, dump_c: str, sizes: dict) -> dict:
     if b_set > backend.BOUNDED_BYTES_PER_KMER:
         raise AssertionError(f"front-end: {b_set:.2f} B/k-mer of the bounded "
                              "mode's whole-set arrays above its constant")
+    walk_bytes(torch, A, k)
     for tag, k in (("run C", 23), ("run E", 31)):
         front_end_modes(torch, sets[tag], k, tag)
     free, total = torch.cuda.mem_get_info()
@@ -1213,6 +1222,66 @@ def check_out_of_core(torch, fasta_a: str, dump_c: str, sizes: dict) -> dict:
            f"{backend.front_end_plan(ceiling, budget)[1]}), the bounded mode "
            "above (phase 22 runs both ceilings at the natural budget)")
     return sets
+
+
+def walk_bytes(torch, A: np.ndarray, k: int) -> None:
+    """The device walk's whole-set bytes per k-mer on run C's set, against
+    backend.WALK_BYTES_PER_KMER: the bounded front-end with keep at a
+    forced budget (front-end ceiling below the set, walk ceiling above),
+    its peak past small query chunks, then kernel W1's walk and emission
+    (core/spss._device_walk) over the arrays it kept.  Its tensors must
+    equal the one-shot mode's by torch.equal, and the strings the host
+    walk's."""
+    from unittest import mock
+
+    from kmerset_tpu_torch.core import spss
+    from kmerset_tpu_torch.core.kmer_set import KmerSet
+    from kmerset_tpu_torch.ops import backend, unitigs
+    from kmerset_tpu_torch.utils import trace
+
+    n, q = A.size, 1 << 18
+    budget = (backend.FRONT_END_BYTES_PER_KMER + backend.WALK_BYTES_PER_KMER) * n
+    if not backend.front_end_ceiling(budget) < n <= backend.walk_ceiling(budget):
+        raise AssertionError("the forced budget does not plan the bounded walk")
+    bounded = [trace.counts().get("walk.bounded", 0)]
+    one = unitigs.device_unitig_succ(A, k, device=DEVICE, keep=True)
+    bounded.append(trace.counts().get("walk.bounded", 0))
+    budget_of = backend.memory_budget
+    backend.memory_budget = lambda device: budget
+    try:
+        base = torch.cuda.memory_allocated()
+        kept, front_peak = _peak_bytes(torch, lambda: unitigs.device_unitig_succ(
+            A, k, device=DEVICE, query_chunk=q, keep=True))
+        held = torch.cuda.memory_allocated() - base
+        got, walk_peak = _peak_bytes(torch, lambda: spss._device_walk(A, k, *kept))
+    finally:
+        backend.memory_budget = budget_of
+    bounded.append(trace.counts().get("walk.bounded", 0))
+    if [b - a for a, b in zip(bounded, bounded[1:])] != [0, 1]:
+        raise AssertionError("the front-end's modes were not one shot and bounded")
+    for name, g, w in zip(("succ", "term_l", "term_r", "both", "set"), kept, one):
+        if not torch.equal(g, w):
+            raise AssertionError(f"bounded front-end with keep: {name} differs")
+    del one, kept
+    with mock.patch.object(backend, "WALK_MIN_KMERS", n + 1):
+        want = spss.get_unitigs_canonical(KmerSet(k, A, _sorted=True), device=DEVICE)
+    if not (np.array_equal(got.codes, want.codes)
+            and np.array_equal(got.offsets, want.offsets)):
+        raise AssertionError("W1 from the bounded front-end: strings differ "
+                             "from the host walk's")
+    front_b = (front_peak - q * backend.FRONT_END_BYTES_PER_QUERY) / n
+    walk_b = (held + walk_peak) / n
+    say(9, f"device walk k={k}, {n} k-mers, from the bounded front-end at a "
+           f"budget of {budget} B ({-(-n // q)} query chunks of 2^18): tensors "
+           f"torch.equal to one shot, strings equal to the host walk's "
+           f"({want.offsets.size - 1}); whole-set arrays {front_b:.2f} B/k-mer "
+           f"while the front-end builds them (past the chunks' "
+           f"{backend.FRONT_END_BYTES_PER_QUERY} B/query), {held / n:.2f} kept, "
+           f"{walk_b:.2f} at W1's peak (walk constant "
+           f"{backend.WALK_BYTES_PER_KMER})")
+    if max(front_b, walk_b) > backend.WALK_BYTES_PER_KMER:
+        raise AssertionError(f"device walk: {max(front_b, walk_b):.2f} B/k-mer "
+                             "above WALK_BYTES_PER_KMER")
 
 
 def front_end_modes(torch, A: np.ndarray, k: int, tag: str) -> None:
@@ -1713,7 +1782,7 @@ _RANK_CLI = (
     "print(json.dumps({'import_s': t1 - t0, 'cli_s': time.perf_counter() - t1,\n"
     "                  'launches': {n: trace.counts().get(\n"
     "                      n if '.' in n else 'launch.' + n, 0)\n"
-    f"                               for n in {KERNELS + WALKS!r}}}}}))\n"
+    f"                               for n in {COUNTED!r}}}}}))\n"
 )
 GROUP_TIMEOUT_S = 600
 
@@ -1818,7 +1887,7 @@ def group_build(tag: str, fasta: str, k: int, ref, kernels, devices,
                                              three["steps"].items())
                  + f"), one device {single_s:.3f} s")
     return {"launches": {name: sum(x["launches"][name] for x in ranks)
-                         for name in KERNELS + WALKS}}
+                         for name in COUNTED}}
 
 
 def serial_compress(m: dict, devices: str) -> float:
@@ -1880,7 +1949,7 @@ def group_compress(tag: str, m: dict, devices, mesh_line: str,
              + f") and {three['serial_s']:.3f} s with --workers 1 (item "
              f"order, as in a group), one device {m['port_s']['compress']:.3f} s")
     return {"launches": {name: sum(x["launches"][name] for x in ranks)
-                         for name in KERNELS + WALKS}}
+                         for name in COUNTED}}
 
 
 # The graph steps a deferred SPSS build takes on the mesh (parallel/
@@ -2523,12 +2592,14 @@ def _count_plan(tag: str, k: int, plan, budgets, merges) -> str:
             f"{ceiling}, budget {budget} B = {budget / (1 << 30):.2f} GiB)")
 
 
-def _front_plan(tag: str, n: int, plan, budgets) -> str:
+def _front_plan(tag: str, n: int, plan, budgets, keep: bool) -> str:
+    """Holds the front-end's plan line against front_end_plan at its
+    budget, with `keep` the run's walk_route answer."""
     from kmerset_tpu_torch.ops import backend
 
     mode, q, m, ceiling, budget = plan[0], *map(int, plan[1:])
     if budget not in budgets or m != n or ceiling != backend.front_end_ceiling(budget) \
-            or backend.front_end_plan(n, budget) != (mode == "bounded", q):
+            or backend.front_end_plan(n, budget, keep) != (mode == "bounded", q):
         raise AssertionError(f"{tag}: front-end plan {plan} is not the one of "
                              f"its budget (budgets seen {budgets})")
     return (f"front-end {mode}, query chunk {q} of {n} k-mers ({-(-n // q)} "
@@ -2642,12 +2713,13 @@ def genome_run(torch, tag: str, fasta: str, k: int, cutoff: int,
     c_chunks, c_chunk = int(plans[0][2]), int(plans[0][3])
     if chunked and c_chunks < 2:
         raise AssertionError(f"{tag}: the count ran in one shot: {count_line}")
-    front_line = _front_plan(tag, n, fronts[0], budgets)
-    # The one-shot front-end's set is walked on the card, the bounded
-    # one's on the host.
-    bounded = int(fronts[0][0] == "bounded")
-    if _check_walks(tag, launches, routes0, bounded=bounded) != 1 - bounded:
+    # The set is walked on the card from either mode of the front-end:
+    # W1's three launches, and walk.bounded where the bounded mode ran.
+    bounded = fronts[0][0] == "bounded"
+    if _check_walks(tag, launches, routes0) != 1 or launches["W1"] != 3 \
+            or launches[BOUNDED_WALKS] != int(bounded):
         raise AssertionError(f"{tag}: sets walked {launches}")
+    front_line = _front_plan(tag, n, fronts[0], budgets, keep=True)
     decode_line = _count_plan(tag, k, plans[1], budgets, merges)
     front_msg = next(m for m in msgs if _FRONT_DOWN.fullmatch(m))
     resident = front_msg.endswith("resident)")
@@ -2714,7 +2786,7 @@ def genome_run(torch, tag: str, fasta: str, k: int, cutoff: int,
     spss_b = peaks.peak["spss"] - peaks.held["filter"]
     check_b = peaks.peak["check"] - peaks.held["spss"]
     dec_w = int(plans[1][1])
-    whole = backend.BOUNDED_BYTES_PER_KMER if fronts[0][0] == "bounded" \
+    whole = backend.WALK_BYTES_PER_KMER if bounded \
         else backend.FRONT_END_BYTES_PER_KMER
     planned = whole * n + q * backend.FRONT_END_BYTES_PER_QUERY
     peak_gib = max(peaks.peak.values()) / (1 << 30)
@@ -2974,7 +3046,8 @@ def main() -> int:
         kern["launches"] = sum(run["launches"][name] for run in runs)
         if kern["launches"] <= 0:
             raise AssertionError(f"kernel {name} was not launched by the runs")
-    walks = {w: sum(run["launches"][w] for run in runs) for w in WALKS}
+    walks = {w: sum(run["launches"][w] for run in runs)
+             for w in (*WALKS, BOUNDED_WALKS)}
     if "jax" in sys.modules:
         raise AssertionError("jax was imported during the port's run")
     ref_mods = [m for m in sys.modules

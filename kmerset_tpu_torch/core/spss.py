@@ -48,7 +48,7 @@ The port's own editions:
   string emission half (:653-730) follows the reference line for line,
   except where backend.walk_route sends it to the card (_device_walk,
   kernel W1 of ops/walk.py: the same strings from the front-end's arrays
-  left there);
+  left there by either of its modes);
 - get_unitigs (:733-770): its directed side tables are built on the
   device (ops/unitigs.device_side_tables_directed, from the resident
   handle where there is a valid one, :742-746) or on the mesh
@@ -587,10 +587,11 @@ def get_unitigs_canonical(kmer_set: KmerSet, *, device, mesh=None) -> PackedStri
     """Maximal non-branching paths of the bidirected de Bruijn graph
     (reference: lib/core/spss.h:231-615), with the graph front-end on
     `device`, or on `mesh` with the chain walk and emission there too.
-    On a CUDA device with no mesh, from backend.WALK_MIN_KMERS k-mers and
-    where the front-end runs in one shot, the chain walk and emission run
-    there too (_device_walk, kernel W1), else on the host; the counters
-    walk.device and walk.host count the sets walked each way.  Requires
+    On a CUDA device with no mesh, from backend.WALK_MIN_KMERS k-mers up
+    to backend.walk_ceiling, the chain walk and emission run there too
+    (_device_walk, kernel W1), from either mode of the front-end, else on
+    the host; the counters walk.device and walk.host count the sets
+    walked each way (device_unitig_succ counts walk.bounded).  Requires
     odd k, as the reference does."""
     A = kmer_set.kmers
     k = kmer_set.k

@@ -85,6 +85,13 @@ FRONT_END_BYTES_PER_KMER = 80
 # keeps the set and the two sides' uint8 degrees (8 + 2) on the device
 # and every other row on the host; 9.42 measured the same way.
 BOUNDED_BYTES_PER_KMER = 10
+# Peak device bytes per k-mer of the device walk's whole-set arrays: the
+# set (8), the oriented successor (16) and the three masks (3), beside
+# the bounded front-end's degrees while it builds them (27.28 measured),
+# or beside kernel W1's own buffers while it walks them (ops/walk.py:
+# 37.01 measured); on one H100 the same way (chip_smoke.py phase 9,
+# PERF.md), rounded up.
+WALK_BYTES_PER_KMER = 40
 # The share of what the CUDA allocator can still obtain that one step may
 # plan to use; the rest covers the arrays that outlive the step and
 # fragmentation.
@@ -188,12 +195,12 @@ def walk_route(n: int, device) -> bool:
     chains on the device (kernel W1, ops/walk.py): on CUDA, from
     WALK_MIN_KMERS k-mers, with the native library loaded (W1 reproduces
     its walk's order, and its cycle walk finishes a set that has pure
-    cycles), where the front-end plans one shot within the device's
-    memory budget (front_end_plan), so that its arrays stay whole on the
-    device for W1."""
+    cycles), up to walk_ceiling of the device's memory budget, so that
+    the front-end's arrays stay whole on the device for W1 in either of
+    its modes (front_end_plan with keep)."""
     return (torch.device(device).type == "cuda" and n >= WALK_MIN_KMERS
             and host_library_loaded()
-            and not front_end_plan(n, memory_budget(device))[0])
+            and n <= walk_ceiling(memory_budget(device)))
 
 
 def memory_budget(device) -> int:
@@ -232,13 +239,27 @@ def front_end_ceiling(budget: int) -> int:
     return max(1, budget // (2 * FRONT_END_BYTES_PER_KMER))
 
 
-def front_end_plan(n: int, budget: int) -> Tuple[bool, int]:
+def walk_ceiling(budget: int) -> int:
+    """The most k-mers the device walk takes within `budget` bytes: the
+    arrays it keeps whole (WALK_BYTES_PER_KMER) take at most half of it,
+    as the front-end's one-shot arrays do, so that the bounded
+    front-end's query chunk fits beside them; at least 1."""
+    return max(1, budget // (2 * WALK_BYTES_PER_KMER))
+
+
+def front_end_plan(n: int, budget: int, keep: bool = False) -> Tuple[bool, int]:
     """(bounded, query_chunk) of the front-end on n k-mers within
     `budget` bytes, its whole-set arrays and one query chunk together:
     the mode by front_end_ceiling, and a query chunk of what the mode's
-    whole-set arrays leave of the budget, at most n and at least 1."""
+    whole-set arrays leave of the budget, at most n and at least 1.  With
+    `keep` (the device walk's plan) the bounded mode keeps its rows on
+    the device too: WALK_BYTES_PER_KMER per k-mer in place of
+    BOUNDED_BYTES_PER_KMER."""
     bounded = n > front_end_ceiling(budget)
-    held = (BOUNDED_BYTES_PER_KMER if bounded else FRONT_END_BYTES_PER_KMER) * n
+    if not bounded:
+        held = FRONT_END_BYTES_PER_KMER * n
+    else:
+        held = (WALK_BYTES_PER_KMER if keep else BOUNDED_BYTES_PER_KMER) * n
     return bounded, max(1, min(n, query_chunk_kmers(budget - held)))
 
 

@@ -10,10 +10,10 @@ that keeps only the set and its degrees there.  Orientation
 convention of core/spss.py: node u = (entity << 1) | o, o = 0 exits the
 right side, o = 1 the left; mirror(u) = u ^ 1.  The chain walk and the
 string emission take exactly these arrays: on the device (kernel W1,
-ops/walk.py) where device_unitig_succ keeps them there, else on the host
-(core/spss.py).  The directed graph's side tables (device_side_tables_
-directed) are built on the device the same way, in query chunks, for
-the host's start and end tests.
+ops/walk.py) where device_unitig_succ keeps them there, in either mode,
+else on the host (core/spss.py).  The directed graph's side tables
+(device_side_tables_directed) are built on the device the same way, in
+query chunks, for the host's start and end tests.
 
 The side codes (dispatch_sides, device_unitig_sides: the reference's
 unitig_sides, :61-144) are the front-end's link format for a slow link:
@@ -106,32 +106,43 @@ def unitig_succ(
     return succ, term_l, term_r, term_l & term_r
 
 
-def bounded_unitig_succ(A: torch.Tensor, k: int, query_chunk: int):
+def bounded_unitig_succ(A: torch.Tensor, k: int, query_chunk: int,
+                        keep: bool = False):
     """unitig_succ of A as host arrays, with only A and the two sides'
     degrees (uint8, at most 4) on the device for the whole set: ~10 bytes
     per k-mer beside one query chunk, where unitig_succ keeps ~80.  One
     pass over the query chunks takes the degrees; a second builds each
     chunk's side tables again, takes its terminal tests and successor
     rows with the whole set's degrees, and downloads them (spans
-    "front_end.download").  Returns ((succ, term_l, term_r, both),
-    seconds spent downloading).  device_unitig_succ takes it above
-    backend.front_end_ceiling."""
+    "front_end.download").  With `keep` (the device walk's plan) the rows
+    are written into whole-set tensors on A's device instead (~29 bytes
+    per k-mer with A and the degrees), and nothing is downloaded.
+    Returns ((succ, term_l, term_r, both), seconds spent downloading).
+    device_unitig_succ takes it above backend.front_end_ceiling."""
     if query_chunk < 1:
         raise ValueError(f"query_chunk must be >= 1, got {query_chunk}")
     n = A.shape[0]
     rdeg, ldeg = _degrees(A, k, query_chunk)
-    succ = np.empty(2 * n, dtype=np.int64)
-    term_l = np.empty(n, dtype=bool)
-    term_r = np.empty(n, dtype=bool)
+    if keep:
+        succ = torch.empty(2 * n, dtype=torch.int64, device=A.device)
+        term_l = torch.empty(n, dtype=torch.bool, device=A.device)
+        term_r = torch.empty_like(term_l)
+    else:
+        succ = np.empty(2 * n, dtype=np.int64)
+        term_l = np.empty(n, dtype=bool)
+        term_r = np.empty(n, dtype=bool)
     download_s = 0.0
     for lo in range(0, n, query_chunk):
         hi = min(lo + query_chunk, n)
         rows = _exits(side_tables(A, k, True, lo, hi), rdeg, ldeg)
+        whole = (succ[2 * lo : 2 * hi], term_l[lo:hi], term_r[lo:hi])
+        if keep:
+            for w, part in zip(whole, rows):
+                w.copy_(part)
+            continue
         backend.sync(A.device)
         with trace.timed("front_end.download") as sp:
-            for host, part, what in zip((succ[2 * lo : 2 * hi], term_l[lo:hi],
-                                         term_r[lo:hi]), rows,
-                                        ("succ", "term_l", "term_r")):
+            for host, part, what in zip(whole, rows, ("succ", "term_l", "term_r")):
                 host[:] = backend.download(what, part)
         download_s += sp.seconds
     return (succ, term_l, term_r, term_l & term_r), download_s
@@ -253,39 +264,48 @@ def device_unitig_succ(
     the device once (the resident handle's tensor, else A uploaded) and
     its side tables are built in query chunks of `query_chunk` k-mers, by
     default what the budget leaves beside the mode's whole-set arrays;
-    the result is the same in every plan.  `keep` is the caller's plan
-    of one shot for the device walk (backend.walk_route): the one-shot
-    mode is taken, nothing is downloaded, and the four arrays come back
-    as tensors on the device with the set's tensor fifth (ops/walk.py's
-    input).  Logs
-    the plan (mode, query chunk, ceiling and budget), then the upload,
-    device and download times and bytes, the chunk count and the mode at
-    debug level."""
+    the result is the same in every plan.  `keep` is the caller's plan of
+    the device walk (backend.walk_route): in either mode nothing is
+    downloaded, and the four arrays come back as tensors on the device,
+    with the set's tensor fifth (ops/walk.py's input).  The span
+    "front_end.plan" holds the plan (kmers, ceiling, budget, mode, walk);
+    the counter front_end.bounded counts the bounded calls, and
+    walk.bounded those with `keep`, whose sets W1 walks.  Logs the plan (mode,
+    query chunk, ceiling and budget), then the upload, device and
+    download times and bytes, the chunk count and the mode at debug
+    level."""
     n = int(A.shape[0])
     dev = resolve_device(device)
     with backend.device_lock(dev):
-        budget = backend.memory_budget(dev)
-        bounded, planned = backend.front_end_plan(n, budget)
-        bounded = bounded and not keep
+        with trace.span("front_end.plan") as sp:
+            budget = backend.memory_budget(dev)
+            ceiling = backend.front_end_ceiling(budget)
+            bounded, planned = backend.front_end_plan(n, budget, keep)
+            sp.set(kmers=n, ceiling=ceiling, budget=budget,
+                   mode="bounded" if bounded else "one-shot",
+                   walk="device" if keep else "host")
         if query_chunk is None:
             query_chunk = planned
         logger.debug("unitigs: %s, query chunk %d of %d k-mers (ceiling %d, "
                      "budget %d)", "bounded" if bounded else "one-shot",
-                     query_chunk, n, backend.front_end_ceiling(budget), budget)
+                     query_chunk, n, ceiling, budget)
         At, up_s = _set_on_device(A, dev, resident)
         if bounded:
+            trace.add("front_end.bounded")
+            if keep:
+                trace.add("walk.bounded")
             with trace.timed("front_end.device", bounded=True) as dv:
-                out, download_s = bounded_unitig_succ(At, k, query_chunk)
+                out, download_s = bounded_unitig_succ(At, k, query_chunk, keep)
+                backend.sync(dev)
             device_s = dv.seconds - download_s
-            down_b = sum(x.nbytes for x in out[:3])  # `both` is made here
+            # `both` is made on the host where the rows are downloaded.
+            down_b = 0 if keep else sum(x.nbytes for x in out[:3])
         else:
             with trace.timed("front_end.device") as dv:
                 out = unitig_succ(At, k, query_chunk)
                 backend.sync(dev)
             device_s, download_s, down_b = dv.seconds, 0.0, 0
-            if keep:
-                out = (*out, At)
-            else:
+            if not keep:
                 with trace.timed("front_end.download") as dl:
                     out = tuple(backend.download(what, x) for what, x in
                                 zip(("succ", "term_l", "term_r", "both"), out))
@@ -298,7 +318,7 @@ def device_unitig_succ(
         -(-n // max(1, query_chunk)), "bounded" if bounded else "one shot",
         ", resident" if resident is not None else "",
     )
-    return out
+    return (*out, At) if keep else out
 
 
 def device_side_tables_directed(

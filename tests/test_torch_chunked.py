@@ -3,8 +3,8 @@
 device_count_chunked and device_unique_chunked (JAX on the CPU, with
 CHUNK_WINDOWS patched small as tests/test_parallel.py does) and against
 the port's one-shot path; the graph front-end in query chunks and in its
-bounded mode against its one-shot result; and the memory-derived
-ceilings.  Every comparison is
+bounded mode (rows downloaded, or kept on the device for the device
+walk) against its one-shot result; and the memory-derived ceilings.  Every comparison is
 exact.
 """
 
@@ -22,6 +22,7 @@ from kmerset_tpu_torch.core import spss as port_spss
 from kmerset_tpu_torch.core.kmer_counter import KmerCounter
 from kmerset_tpu_torch.core.strings import PackedStrings
 from kmerset_tpu_torch.ops import backend, unitigs
+from kmerset_tpu_torch.utils import trace
 
 
 def _codes(seed: int, n: int = 6000):
@@ -125,6 +126,29 @@ def test_front_end_plan_fits_whole_set_and_chunk_in_the_budget(budget):
         if held + per_query <= budget:
             assert held + q * per_query <= budget, (n, q)
         if not bounded and budget:  # a zero budget still plans 1 k-mer
+            assert held <= budget // 2
+            assert q >= min(n, backend.query_chunk_kmers(budget // 2))
+
+
+@pytest.mark.parametrize("budget", [0, 1000, 1 << 20, 40 << 30])
+def test_front_end_plan_with_keep_holds_the_walk_bytes(budget):
+    """With keep (the device walk's plan) the bounded mode's whole-set
+    arrays are WALK_BYTES_PER_KMER a k-mer, and its query chunk is what
+    they leave; up to the walk's ceiling that is at least half the
+    budget's worth.  The one-shot mode plans as without keep."""
+    ceiling = backend.front_end_ceiling(budget)
+    per_query = backend.FRONT_END_BYTES_PER_QUERY
+    walk = backend.walk_ceiling(budget)
+    assert walk == max(1, budget // (2 * backend.WALK_BYTES_PER_KMER))
+    for n in (1, ceiling, ceiling + 1, walk, walk + 1, 8 * walk):
+        bounded, q = backend.front_end_plan(n, budget, keep=True)
+        assert bounded == (n > ceiling)
+        if not bounded:
+            assert (bounded, q) == backend.front_end_plan(n, budget)
+            continue
+        held = n * backend.WALK_BYTES_PER_KMER
+        assert q == max(1, min(n, (budget - held) // per_query))
+        if n <= walk and budget:
             assert held <= budget // 2
             assert q >= min(n, backend.query_chunk_kmers(budget // 2))
 
@@ -249,6 +273,38 @@ def test_front_end_bounded_mode_below_its_budget(monkeypatch, k):
     assert (got[0] >= 0).any() and (got[0] == -1).any()
     with pytest.raises(ValueError, match="query_chunk"):
         unitigs.bounded_unitig_succ(torch.from_numpy(A), k, 0)
+
+
+@pytest.mark.parametrize("k", [9, 23, 31])
+def test_bounded_mode_with_keep_gives_the_one_shot_tensors(monkeypatch, k):
+    """With keep (the device walk's plan) the bounded mode writes each
+    query chunk's rows into whole-set tensors on the set's device and
+    downloads nothing; its tensors equal the one-shot mode's on the same
+    set, through bounded_unitig_succ and through device_unitig_succ's
+    plan at a budget above and below the front-end's ceiling."""
+    A = _canonical_set(k, 5000, 500 + k)
+    At = torch.from_numpy(A)
+    one = unitigs.unitig_succ(At, k)
+    got, down_s = unitigs.bounded_unitig_succ(At, k, 700, keep=True)
+    assert down_s == 0.0
+    names = ("succ", "term_l", "term_r", "both")
+    for name, g, w in zip(names, got, one):
+        assert isinstance(g, torch.Tensor) and g.dtype == w.dtype, name
+        assert torch.equal(g, w), name
+    downloads = _spy(monkeypatch, backend, "download")
+    kept = {}
+    for mode, budget in (("one-shot", 1 << 30),
+                         ("bounded", (backend.FRONT_END_BYTES_PER_KMER
+                                      + backend.WALK_BYTES_PER_KMER) * A.size)):
+        monkeypatch.setattr(backend, "memory_budget", lambda device: budget)
+        before = trace.counts().get("walk.bounded", 0)
+        kept[mode] = unitigs.device_unitig_succ(A, k, device="cpu", keep=True)
+        assert trace.counts().get("walk.bounded", 0) - before == (mode == "bounded")
+        assert len(kept[mode]) == 5 and torch.equal(kept[mode][4], At)
+    assert downloads == []
+    for name, b, o, w in zip(names, kept["bounded"], kept["one-shot"], one):
+        assert torch.equal(b, o) and torch.equal(o, w), name
+    assert bool((one[0] >= 0).any()) and bool((one[0] == -1).any())
 
 
 def test_key_merge_fallback_matches_native_merge(monkeypatch):

@@ -12,6 +12,9 @@ refuses (None) exactly where it cannot promise them, and the build then
 raises.
 """
 
+import json
+import logging
+
 import numpy as np
 import pytest
 import torch
@@ -251,19 +254,131 @@ def test_sets_below_the_size_constant_keep_the_host_walk(monkeypatch, below):
 
 
 def test_walk_route_reads_the_constant_and_the_device(monkeypatch):
-    """The route holds on CUDA from WALK_MIN_KMERS k-mers where the
-    front-end plans one shot; a budget whose front-end ceiling is below
-    the set (the bounded mode) keeps the host walk."""
+    """The route holds on CUDA from WALK_MIN_KMERS k-mers up to the walk's
+    own ceiling, WALK_BYTES_PER_KMER per k-mer within half the budget:
+    above the front-end's one-shot ceiling too (its bounded mode keeps
+    the rows on the device); a budget whose walk ceiling is below the set
+    keeps the host walk."""
     _host_budget(monkeypatch)
     n = backend.WALK_MIN_KMERS
     assert backend.walk_route(n, "cuda")
     assert backend.walk_route(n, torch.device("cuda:0"))
     assert not backend.walk_route(n - 1, "cuda")
     assert not backend.walk_route(n, "cpu")
-    small = backend.FRONT_END_BYTES_PER_KMER * n  # ceiling n / 2
+    small = backend.FRONT_END_BYTES_PER_KMER * n  # front-end ceiling n / 2
     assert backend.front_end_plan(n, small)[0]
+    assert backend.walk_ceiling(small) >= n
     _host_budget(monkeypatch, small)
+    assert backend.walk_route(n, "cuda")
+    tight = 2 * backend.WALK_BYTES_PER_KMER * n
+    assert backend.walk_ceiling(tight) == n
+    _host_budget(monkeypatch, tight - 1)
     assert not backend.walk_route(n, "cuda")
+    _host_budget(monkeypatch, tight)
+    assert backend.walk_route(n, "cuda")
+    monkeypatch.setattr(backend, "WALK_BYTES_PER_KMER",
+                        backend.WALK_BYTES_PER_KMER + 1)
+    assert not backend.walk_route(n, "cuda")
+
+
+@pytest.fixture
+def trace_lines():
+    """The "kmerset" logger at debug level, its messages captured; its
+    handlers, level and propagation restored afterwards."""
+    log = logging.getLogger("kmerset")
+    saved = log.handlers[:], log.level, log.propagate
+    lines = []
+
+    class Capture(logging.Handler):
+        def emit(self, record):
+            lines.append(record.getMessage())
+
+    log.handlers = [Capture(logging.DEBUG)]
+    log.setLevel(logging.DEBUG)
+    log.propagate = False
+    try:
+        yield lines
+    finally:
+        log.handlers, log.propagate = saved[0], saved[2]
+        log.setLevel(saved[1])
+
+
+def _traced(lines, fn):
+    """fn() inside a traced call: its result and the call's trace line."""
+    with trace.root("cli.test", True):
+        out = fn()
+    found = [m for m in lines if m.startswith(trace.PREFIX)]
+    assert len(found) == 1
+    lines.clear()
+    return out, json.loads(found[0][len(trace.PREFIX):])
+
+
+def _bounded_walk_budget(monkeypatch, n: int) -> int:
+    """A budget whose front-end ceiling is below n and whose walk ceiling
+    is not, read on every device."""
+    budget = (backend.FRONT_END_BYTES_PER_KMER + backend.WALK_BYTES_PER_KMER) * n
+    assert backend.front_end_ceiling(budget) < n <= backend.walk_ceiling(budget)
+    _host_budget(monkeypatch, budget)
+    return budget
+
+
+@pytest.mark.parametrize("k", [15, 23])
+def test_a_set_above_the_front_end_ceiling_walks_on_the_device(
+        monkeypatch, trace_lines, k):
+    """A set above the front-end's one-shot ceiling and under the walk's:
+    the bounded front-end keeps its rows on the device and W1 walks them,
+    with the strings of the host route; the front_end.plan span states
+    the plan, and front_end.bounded and walk.bounded count the set."""
+    ks = KmerSet(k, _kmer_set(k, seed=13 * k, isolated=10, cycles=3), _sorted=True)
+    n = ks.size()
+    want = spss.get_unitigs_canonical(ks, device="cpu")
+    _as_cuda_route(monkeypatch, n)
+    budget = _bounded_walk_budget(monkeypatch, n)
+    bounded = []
+    real = unitigs.bounded_unitig_succ
+    monkeypatch.setattr(unitigs, "bounded_unitig_succ",
+                        lambda *a: bounded.append(a[3:]) or real(*a))
+    d0, h0 = _counts()
+    got, line = _traced(trace_lines,
+                        lambda: spss.get_unitigs_canonical(ks, device="cpu"))
+    assert _counts() == (d0 + 1, h0) and bounded == [(True,)]
+    _equal(got, want)
+    _equal(got, ref_spss.get_unitigs_canonical(RefKmerSet(k, ks.kmers, _sorted=True)))
+    plans = [s for s in line["spans"] if s["name"] == "front_end.plan"]
+    assert [p["attrs"] for p in plans] == [{
+        "kmers": n, "ceiling": backend.front_end_ceiling(budget),
+        "budget": budget, "mode": "bounded", "walk": "device"}]
+    assert line["counters"]["front_end.bounded"] == 1
+    assert line["counters"]["walk.bounded"] == 1
+    assert line["counters"]["walk.device"] == 1
+    assert not any(s["name"] == "front_end.download" for s in line["spans"])
+
+
+@pytest.mark.parametrize("walk", ["device", "host"])
+@pytest.mark.parametrize("mode", ["one-shot", "bounded"])
+def test_the_plan_span_and_counters_of_each_route(monkeypatch, trace_lines,
+                                                  mode, walk):
+    """One front_end.plan span per front-end call, with its mode and walk;
+    front_end.bounded counts the bounded calls and walk.bounded the sets
+    W1 walked from them, nothing else."""
+    ks = KmerSet(15, _kmer_set(15, seed=41), _sorted=True)
+    n = ks.size()
+    if walk == "device":
+        _as_cuda_route(monkeypatch, n)
+    if mode == "bounded":
+        budget = _bounded_walk_budget(monkeypatch, n)
+    else:
+        budget = backend.HOST_BUDGET
+        _host_budget(monkeypatch, budget)
+    _, line = _traced(trace_lines,
+                      lambda: spss.get_unitigs_canonical(ks, device="cpu"))
+    plans = [s["attrs"] for s in line["spans"] if s["name"] == "front_end.plan"]
+    assert plans == [{"kmers": n, "ceiling": backend.front_end_ceiling(budget),
+                      "budget": budget, "mode": mode, "walk": walk}]
+    c = line["counters"]
+    assert c.get("front_end.bounded", 0) == (mode == "bounded")
+    assert c.get("walk.bounded", 0) == (mode == "bounded" and walk == "device")
+    assert c.get(f"walk.{walk}", 0) == 1
 
 
 def test_a_mesh_keeps_the_host_walk(monkeypatch):
