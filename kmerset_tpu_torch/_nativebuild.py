@@ -23,6 +23,11 @@ headers, into the same directory, where the checkout's
 native/kmerset_pool<EXT_SUFFIX> (built by `make -C native`, which forces
 -fopenmp) is missing or does not load.
 
+The dump's text codec (kmerset_tpu_torch/csrc/lines.c, the port's own
+source): build_lines compiles it the same way, without OpenMP, into the
+same directory, and core/native.py loads it apart from libkmerio, whose
+source and ABI the two packages share.
+
 The reference ships its native code through a CMake build the user runs
 explicitly (reference: CMakeLists.txt:41-50, README.md:196-205).  Here the
 native layer is an *optional accelerator*: every caller has a complete
@@ -52,14 +57,19 @@ BUILD_DIR = os.path.join(
 )
 SERIAL_FLAGS = ["-O3", "-fPIC", "-shared", "-Wno-unknown-pragmas"]
 POOL_FLAGS = ["-O3", "-fPIC", "-shared"]
-# The results in this process of build_serial ("result") and build_pool
-# ("pool"): (path or None, compile seconds).
+LINES_FLAGS = ["-O3", "-fPIC", "-shared"]
+# The results in this process of build_serial ("result"), build_pool
+# ("pool") and build_lines ("lines"): (path or None, compile seconds).
 _SERIAL: dict = {}
 
 
 def _native_dir() -> str:
     here = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     return os.path.join(here, "native")
+
+
+def _lines_source() -> str:
+    return os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc", "lines.c")
 
 
 def ensure_built(target: str, sources: Sequence[str]) -> None:
@@ -163,7 +173,8 @@ def build_serial() -> Tuple[Optional[str], Optional[float]]:
             out = serial_library_path()
         except OSError:  # no native/kmerio.c
             out = None
-        _SERIAL["result"] = _compile_once(out, "kmerio.c", SERIAL_FLAGS)
+        _SERIAL["result"] = _compile_once(
+            out, os.path.join(_native_dir(), "kmerio.c"), SERIAL_FLAGS)
     return _SERIAL["result"]
 
 
@@ -204,12 +215,34 @@ def build_pool() -> Tuple[Optional[str], Optional[float]]:
             out = pool_library_path(flags) if flags is not None else None
         except OSError:  # no native/pool_alloc.c
             out = None
-        _SERIAL["pool"] = _compile_once(out, "pool_alloc.c", flags)
+        _SERIAL["pool"] = _compile_once(
+            out, os.path.join(_native_dir(), "pool_alloc.c"), flags)
     return _SERIAL["pool"]
 
 
+def lines_library_path() -> str:
+    """Where build_lines puts the text codec of the current csrc/lines.c."""
+    h = hashlib.sha256(" ".join(LINES_FLAGS).encode())
+    with open(_lines_source(), "rb") as f:
+        h.update(f.read())
+    return os.path.join(BUILD_DIR, f"liblines_{h.hexdigest()[:16]}.so")
+
+
+def build_lines() -> Tuple[Optional[str], Optional[float]]:
+    """(path, compile seconds) of the dump's text codec, compiled as
+    build_serial compiles the library: (None, None) when there is no
+    lines.c, no compiler or the compile fails.  One attempt per process."""
+    if "lines" not in _SERIAL:
+        try:
+            out = lines_library_path()
+        except OSError:  # no csrc/lines.c
+            out = None
+        _SERIAL["lines"] = _compile_once(out, _lines_source(), LINES_FLAGS)
+    return _SERIAL["lines"]
+
+
 def _compile_once(out: Optional[str], source: str, flags) -> Tuple[Optional[str], Optional[float]]:
-    """Compiles native/<source> with `flags` into `out` unless it is
+    """Compiles the C file `source` with `flags` into `out` unless it is
     there, under a file lock in BUILD_DIR: (out, seconds), seconds None
     when it was already built; (None, None) without `out`, with
     KMERSET_TPU_NO_AUTOBUILD set, or when the compile fails."""
@@ -228,8 +261,7 @@ def _compile_once(out: Optional[str], source: str, flags) -> Tuple[Optional[str]
             tmp = f"{out}.{os.getpid()}.tmp"
             t0 = time.perf_counter()
             proc = subprocess.run(
-                [os.environ.get("CC") or "cc", *flags, "-o", tmp,
-                 os.path.join(_native_dir(), source)],
+                [os.environ.get("CC") or "cc", *flags, "-o", tmp, source],
                 stdout=subprocess.DEVNULL, stderr=subprocess.DEVNULL,
                 timeout=300, check=False,
             )

@@ -37,6 +37,14 @@ Also left out: the partitioned side-table edition, which serves
 canonical sets only (the port builds those on its device), and the
 KMERSET_TPU_NO_PART switch of the partitioned overlap join and succ
 rebuild (their output is bit-identical to the fp edition's either way).
+
+The port's own: lines_encode and lines_decode, the dump's text codec
+behind PackedStrings.to_lines_bytes and from_lines_bytes, which the
+reference runs in numpy.  They live in a library of their own
+(kmerset_tpu_torch/csrc/lines.c, compiled on first use by
+_nativebuild.build_lines and loaded by get_lines_lib), so that
+libkmerio's source and ABI stay the ones the reference loads; where it
+cannot be built, they return None and the callers take numpy.
 """
 
 from __future__ import annotations
@@ -214,6 +222,39 @@ def _get_lib_locked() -> Optional[ctypes.CDLL]:
     return _LIB
 
 
+_LINES: Optional[ctypes.CDLL] = None
+_LINES_TRIED = False
+# name: (restype, argtypes), as csrc/lines.c declares them.
+_LINES_SIGNATURES = {
+    "kmerset_lines_encode": (_long, [_u8p, _i64p, _long, _u8p]),
+    "kmerset_lines_decode": (_long, [_u8p, _long, _u8p, _i64p]),
+}
+
+
+def get_lines_lib() -> Optional[ctypes.CDLL]:
+    """The text codec's library (csrc/lines.c), compiled on first use;
+    None where it cannot be built or loaded."""
+    global _LINES, _LINES_TRIED
+    if _LINES_TRIED:
+        return _LINES
+    with _GET_LIB_LOCK:
+        if not _LINES_TRIED:
+            from .._nativebuild import build_lines
+
+            path, _ = build_lines()
+            lib = None
+            try:
+                if path is not None:
+                    lib = ctypes.CDLL(path)
+                    for name, (restype, argtypes) in _LINES_SIGNATURES.items():
+                        fn = getattr(lib, name)
+                        fn.restype, fn.argtypes = restype, argtypes
+            except (OSError, AttributeError):  # not a library, or stale
+                lib = None
+            _LINES, _LINES_TRIED = lib, True
+    return _LINES
+
+
 def set_threads(n: int) -> bool:
     """Sizes the native OpenMP pool from the CLI --workers flag
     (reference thread-pool sizing, lib/flags.h:25-53; default 1 keeps the
@@ -280,6 +321,55 @@ def unpack2(packed: np.ndarray, n: int) -> np.ndarray:
         vals = (packed >> (sh * 2)) & 3
         out[sh::4] = vals[: out[sh::4].shape[0]]
     return out
+
+
+def lines_encode(codes: np.ndarray, offsets: np.ndarray) -> Optional[bytearray]:
+    """The dump text of PackedStrings (codes, offsets): each string's
+    bases and a newline, written in one native pass into the bytearray
+    it returns; None without the codec's library."""
+    lib = get_lines_lib()
+    if lib is None:
+        return None
+    codes = np.ascontiguousarray(codes, dtype=np.uint8)
+    offsets = np.ascontiguousarray(offsets, dtype=np.int64)
+    n = offsets.shape[0] - 1
+    if n <= 0:
+        return bytearray()
+    lo, hi = int(offsets[0]), int(offsets[-1])
+    if lo < 0 or hi > codes.shape[0]:
+        raise ValueError("offsets must lie within the codes")
+    out = bytearray(max(hi - lo, 0) + n)
+    # The C pass checks that the offsets do not decrease before it writes.
+    rc = lib.kmerset_lines_encode(
+        codes.ctypes.data_as(_u8p), offsets.ctypes.data_as(_i64p), n,
+        np.frombuffer(out, dtype=np.uint8).ctypes.data_as(_u8p),
+    )
+    if rc < 0:
+        raise ValueError("codes must lie in 0..3 and offsets must not decrease")
+    return out
+
+
+def lines_decode(data) -> Optional[Tuple[np.ndarray, np.ndarray]]:
+    """Inverse of lines_encode over a bytes-like blob, with or without a
+    newline after its last string, in one native pass after a count of
+    its lines: (codes, offsets); None without the codec's library.
+    Raises ValueError on a byte other than A/C/G/T and newline."""
+    lib = get_lines_lib()
+    if lib is None:
+        return None
+    raw = np.frombuffer(data, dtype=np.uint8)
+    m = raw.shape[0]
+    src = raw.ctypes.data_as(_u8p)
+    n = lib.kmerset_lines_decode(src, m, None, None)
+    # Every string ends in a newline, but a last one may end the data.
+    unterminated = int(m > 0 and raw[-1] != ord("\n"))
+    codes = np.empty(m - n + unterminated, dtype=np.uint8)
+    offsets = np.empty(n + 1, dtype=np.int64)
+    if lib.kmerset_lines_decode(
+        src, m, codes.ctypes.data_as(_u8p), offsets.ctypes.data_as(_i64p)
+    ) < 0:
+        raise ValueError("strings must contain only A/C/G/T")
+    return codes, offsets
 
 
 def chain_walk(succ: np.ndarray, starts: np.ndarray):

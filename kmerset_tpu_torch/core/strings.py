@@ -19,6 +19,7 @@ from typing import Iterable, List
 
 import numpy as np
 
+from ..utils import trace
 from . import kmer as kmer_ops
 
 
@@ -87,11 +88,18 @@ class PackedStrings:
         offs = self.offsets
         return [blob[offs[i] : offs[i + 1]] for i in range(len(self))]
 
-    def to_lines_bytes(self) -> bytes:
+    def to_lines_bytes(self) -> bytes | bytearray:
         """The newline-terminated ASCII dump blob (exactly what
-        write_lines produces from to_strings) in vectorized passes —
-        the per-string Python list costs ~1 s at 19M bases where this
-        is ~0.1 s."""
+        write_lines produces from to_strings): the native codec's one pass
+        (csrc/lines.c) into a bytearray (counter "lines.native"), else
+        vectorized numpy passes ("lines.numpy")."""
+        from . import native
+
+        out = native.lines_encode(self.codes, self.offsets)
+        if out is not None:
+            trace.add("lines.native")
+            return out
+        trace.add("lines.numpy")
         n = len(self)
         total = int(self.offsets[-1])
         if n == 0:
@@ -108,16 +116,24 @@ class PackedStrings:
     @classmethod
     def from_lines_bytes(cls, data: bytes) -> "PackedStrings":
         """Inverse of to_lines_bytes: parses a newline-separated ACGT
-        blob (with or without a trailing newline) in vectorized passes.
-        Raises ValueError on any non-ACGT/newline byte — the same error
-        the from_strings path raises for invalid dumps.  Callers wanting
-        universal-newline tolerance normalize \\r first (see
-        KmerSetCompact.load)."""
+        blob (with or without a trailing newline) in the native codec's
+        one pass (counter "lines.native"), else in vectorized numpy
+        passes ("lines.numpy").  Raises ValueError on any non-ACGT/newline
+        byte — the same error the from_strings path raises for invalid
+        dumps.  Callers wanting universal-newline tolerance normalize \\r
+        first (see KmerSetCompact.load)."""
+        from . import native
+
         if data in (b"", b"\n"):
             # read_lines parity: one trailing newline of an empty dump
             # strips to nothing (KmerSetCompact.load maps [""] to []).
-            return cls.empty()
-        if data[-1:] != b"\n":
+            data = b""
+        parsed = native.lines_decode(data)
+        if parsed is not None:
+            trace.add("lines.native")
+            return cls(*parsed)
+        trace.add("lines.numpy")
+        if data[-1:] not in (b"", b"\n"):
             data = data + b"\n"
         raw = np.frombuffer(data, dtype=np.uint8)
         nl = raw == ord("\n")

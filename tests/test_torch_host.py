@@ -44,6 +44,7 @@ def lib_mode(request, monkeypatch):
     """The environment's native library, or none on either side."""
     if request.param == "numpy":
         monkeypatch.setattr(native, "get_lib", lambda: None)
+        monkeypatch.setattr(native, "get_lines_lib", lambda: None)
         monkeypatch.setattr(ref_native, "get_lib", lambda: None)
     return request.param
 
@@ -136,6 +137,48 @@ def test_serial_edition_is_built_once_and_reused(serial_only):
     native._LIB, native._TRIED, native._EDITION = None, False, None
     serial_only(first.path)  # a library that loads, where the checkout's is
     assert native.edition() == native.Edition(first.path, False, None)
+
+
+def test_both_editions_export_the_lines_codec(serial_only, monkeypatch):
+    """The dump's text codec (kmerset_lines_encode, kmerset_lines_decode)
+    is built from the port's own csrc/lines.c into a library of its own,
+    named by the source's hash; libkmerio, in either edition, stays as the
+    reference has it, without the codec, at ABI 3.  The bindings refuse
+    bad offsets and codes before the C pass writes past its buffer."""
+    import ctypes
+
+    from kmerset_tpu_torch import _nativebuild
+
+    serial_only(None)
+    kmerio = native.edition()
+    assert kmerio.serial and native.get_lib().kmerio_abi_version() == 3
+    assert not hasattr(ctypes.CDLL(kmerio.path), "kmerset_lines_encode")
+    monkeypatch.setattr(native, "_LINES", None)
+    monkeypatch.setattr(native, "_LINES_TRIED", False)
+    path, secs = _nativebuild.build_lines()
+    assert path == _nativebuild.lines_library_path() and secs > 0
+    assert path.startswith(_nativebuild.BUILD_DIR)
+    lib = native.get_lines_lib()
+    assert lib is not None and lib._name == path
+    assert hasattr(lib, "kmerset_lines_encode")
+    assert hasattr(lib, "kmerset_lines_decode")
+    with pytest.raises(ValueError, match="0..3"):
+        native.lines_encode(np.array([1, 4], np.uint8), np.array([0, 2]))
+    for offsets in ([0, 3, 2, 4], [0, 5, 2]):
+        with pytest.raises(ValueError, match="must not decrease"):
+            native.lines_encode(np.zeros(4, np.uint8), np.array(offsets))
+    # Decreasing offsets write nothing: [0, 5, 2] would put 6 bytes
+    # into the 4 that offsets[-1] - offsets[0] + n sizes.
+    out = np.full(16, 7, np.uint8)
+    assert lib.kmerset_lines_encode(
+        np.zeros(8, np.uint8).ctypes.data_as(native._u8p),
+        np.array([0, 5, 2], np.int64).ctypes.data_as(native._i64p), 2,
+        out.ctypes.data_as(native._u8p)) == -1
+    assert (out == 7).all()
+    with pytest.raises(ValueError, match="within the codes"):
+        native.lines_encode(np.zeros(4, np.uint8), np.array([0, 5]))
+    assert bytes(native.lines_encode(np.array([0, 1, 2, 3], np.uint8),
+                                     np.array([0, 1, 1, 4]))) == b"A\n\nCGT\n"
 
 
 def test_failed_make_is_recorded_and_not_retried(tmp_path, monkeypatch):
@@ -267,6 +310,54 @@ def test_packed_strings_match_reference(k, lib_mode):
     assert two.size_kmers(k) == ps.size_kmers(k)
     parts = [codes[:5], codes[5:5], codes[5:9]]
     _same_strings(PackedStrings.from_code_lists(parts), RefStrings.from_code_lists(parts))
+
+
+_LINES_CASES = ["empty", "one", "empty-strings", "ragged-1000", "long-2^20",
+                "no-trailing-newline", "crlf-load", "non-acgt"]
+
+
+def _lines_lengths(case: str, rng) -> np.ndarray:
+    if case == "ragged-1000":
+        return rng.integers(0, 300, 1000)
+    return np.array({"empty": [], "one": [57], "empty-strings": [0, 9, 0, 0, 14, 0],
+                     "long-2^20": [1 << 20]}.get(case, [7, 0, 31, 2]), np.int64)
+
+
+@pytest.mark.parametrize("case", _LINES_CASES)
+def test_lines_codec_matches_reference(case, lib_mode, tmp_path):
+    """The dump's text codec on both routes (libkmerio's one pass each
+    way, or numpy's passes): the blob equals the reference's byte for
+    byte, and parsing it gives the codes and offsets back."""
+    from kmerset_tpu.core.kmer_set_compact import KmerSetCompact as RefCompact
+    from kmerset_tpu_torch.core.kmer_set_compact import KmerSetCompact
+
+    assert (native.get_lines_lib() is None) == (lib_mode == "numpy")
+    rng = np.random.default_rng(20)
+    lens = _lines_lengths(case, rng)
+    codes = rng.integers(0, 4, int(lens.sum())).astype(np.uint8)
+    offsets = np.concatenate([[0], np.cumsum(lens)]).astype(np.int64)
+    ps = PackedStrings(codes, offsets)
+    blob = ps.to_lines_bytes()
+    assert bytes(blob) == RefStrings(codes, offsets).to_lines_bytes()
+    if case == "no-trailing-newline":
+        blob = bytes(blob)[:-1]
+    elif case == "crlf-load":
+        path = tmp_path / "crlf.txt"
+        path.write_bytes(bytes(blob).replace(b"\n", b"\r\n"))
+        got = KmerSetCompact.load(15, str(path), device="cpu").spss
+        _same_strings(got, RefCompact.load(15, str(path)).spss)
+        _same_strings(got, ps)
+        return
+    elif case == "non-acgt":
+        blob = bytearray(blob)
+        blob[9] = ord("N")  # inside the third string
+        for parse in (PackedStrings.from_lines_bytes, RefStrings.from_lines_bytes):
+            with pytest.raises(ValueError, match="only A/C/G/T"):
+                parse(bytes(blob))
+        return
+    back = PackedStrings.from_lines_bytes(blob)
+    _same_strings(back, RefStrings.from_lines_bytes(bytes(blob)))
+    _same_strings(back, ps)
 
 
 def test_kmer_set_and_sketch_sample_match_reference(lib_mode):

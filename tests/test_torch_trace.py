@@ -263,6 +263,35 @@ def test_build_cli_logs_one_trace_line_with_every_layer(fastas, logger, tmp_path
     assert not [m for _, m in job.lines if m.startswith(trace.PREFIX)]
 
 
+@pytest.mark.parametrize("route", ["native", "numpy"])
+def test_the_dump_and_load_count_the_route_of_their_text_codec(
+    route, fastas, logger, tmp_path, monkeypatch
+):
+    """One "lines.<route>" counter inside a build's io.dump and one inside
+    a load's io.load; "numpy" where the codec's library is forced absent."""
+    from kmerset_tpu_torch.cli import kmerset_build
+    from kmerset_tpu_torch.core import native
+    from kmerset_tpu_torch.core.kmer_set_compact import KmerSetCompact
+
+    if route == "numpy":
+        monkeypatch.setattr(native, "get_lines_lib", lambda: None)
+    reads, _, _ = fastas
+    path = str(tmp_path / "out.txt")
+    out = _line(_cli_job(kmerset_build.main, [
+        "--device", "cpu", "--debug", "--k", "15", "--out", path, reads],
+        logger).lines)
+    del logger[:]
+    with trace.root("cli.test", True):
+        KmerSetCompact.load(15, path, device="cpu")
+    loaded = _line(logger)
+    other = {"native": "numpy", "numpy": "native"}[route]
+    for got, name in ((out, "io.dump"), (loaded, "io.load")):
+        assert got["counters"][f"lines.{route}"] == 1
+        assert f"lines.{other}" not in got["counters"]
+        (sp,) = [s for s in got["spans"] if s["name"] == name]
+        assert sp["counters"][f"lines.{route}"] == 1
+
+
 class _Ctx:
     def __init__(self, kind, jobs):
         self.kind, self.jobs, self.trace = kind, jobs, None
@@ -290,6 +319,13 @@ def test_compress_cli_logs_one_trace_line_with_every_layer(fastas, logger):
     loads = [s for s in out["spans"] if s["name"] == "io.load"]
     assert sorted(s["attrs"]["file"] for s in loads) == sorted(sets)
     assert all(s["attrs"]["bytes"] > 0 for s in loads)
+    # One decode a load and one encode a set file (meta.txt has no codec).
+    dumps = [s for s in out["spans"] if s["name"] == "io.dump"
+             and not s["attrs"]["file"].endswith("meta.txt")]
+    for sp in loads + dumps:
+        assert sp["counters"]["lines.native"] == 1
+    assert out["counters"]["lines.native"] == len(loads) + len(dumps)
+    assert "lines.numpy" not in out["counters"]
     _check_copies(out)
     _check_readers_ignore_the_line(job)
     assert log_spans.sketch_seconds(job.lines) is not None
