@@ -93,9 +93,9 @@ utils/io.get_kmer_set_from_file of run A's dump, each against the
 reference's same calls in a subprocess (byte-identical directory, equal
 arrays, sizes and hashes).  Phase 21 runs runs A, C, E and F again with
 KMERSET_TPU_LINK=slow (the gap-encoded key download, the side-code
-front-end with the count's prefetch, the resident handle), each dump
-byte-identical to its reference dump; run A must take the gap format
-and the prefetched side codes; it holds the gap encode and the side
+front-end built on the resident handle), each dump byte-identical to
+its reference dump; run A must take the gap format, and each canonical
+run must build its side codes on the resident set; it holds the gap encode and the side
 codes against their plain versions on the CPU copy of the input, the
 successor rebuilt from the card's side codes against the card's
 front-end, and run D's handle filter against the host filter, prints
@@ -2325,10 +2325,8 @@ _LINK_LINES = {
     "deltas": re.compile(r"deltas: key download (\d+) B \(.*\) in ([\d.]+) s, "
                          r"decode ([\d.]+) s \((\d+) keys, esc (\d+), (\d+) overflows\)"),
     "rejected": re.compile(r"deltas: format rejected \((\w+)\): (.*); raw key download"),
-    "prefetched": re.compile(r"unitigs: side codes prefetched, download wait "
-                             r"([\d.]+) s \(\d+ k-mers, (\d+) B\)"),
-    "sides": re.compile(r"unitigs: side codes upload [\d.]+ s, device ([\d.]+) s, "
-                        r"download ([\d.]+) s \(\d+ k-mers, (\d+) B"),
+    "sides": re.compile(r"unitigs: side codes upload ([\d.]+) s, device ([\d.]+) s, "
+                        r"download ([\d.]+) s \(\d+ k-mers, (\d+) B, (\w+)\)"),
     "rebuild": re.compile(r"unitigs: succ rebuild: ([\d.]+)s"),
     "resident": re.compile(r"unitigs: device [a-z -]+ upload ([\d.]+) s.*resident\)"),
 }
@@ -2353,10 +2351,11 @@ def _download_line(lk: dict) -> str:
     else:
         keys = f"keys raw {lk['keys'][0]} B in {float(lk['keys'][1]):.4f} s"
     line = f"{keys}; counts {lk['counts'][0]} B in {float(lk['counts'][1]):.4f} s"
-    if "prefetched" in lk:
-        line += (f"; side codes (prefetched by the count) {lk['prefetched'][1]} B, "
-                 f"download wait {float(lk['prefetched'][0]):.4f} s, succ rebuild "
-                 f"on the host {float(lk['rebuild'][0]):.3f} s")
+    if "sides" in lk:
+        _, dev_s, dl_s, nbytes, _ = lk["sides"]
+        line += (f"; side codes {nbytes} B, device {float(dev_s):.4f} s, download "
+                 f"{float(dl_s):.4f} s, succ rebuild on the host "
+                 f"{float(lk['rebuild'][0]):.3f} s")
     return line
 
 
@@ -2369,10 +2368,11 @@ def check_link(torch, plan, refs, runs, S: np.ndarray, fasta_d: str) -> list:
     """Phase 21, the link formats and the resident handle on the card.
     Runs A, C, E and F again with KMERSET_TPU_LINK=slow (the gap-encoded
     key download where its plan takes the set, the side-code route of the
-    canonical front-end with the count's prefetch, the handle in place of
-    the front-end's upload), each dump byte-identical to the reference
-    dump of phases 5, 6, 12 and 16; run A must take the gap format with no
-    rejection and the prefetched side codes.  Then the delta encode on run
+    canonical front-end, the handle in place of the front-end's upload),
+    each dump byte-identical to the reference dump of phases 5, 6, 12 and
+    16; run A must take the gap format with no rejection, and each
+    canonical run must build its side codes on the resident set, with no
+    upload.  Then the delta encode on run
     A's keys and the side codes against their plain versions (the same
     torch functions on the CPU copy of the input, B3's plain version
     there), the successor rebuilt from the card's side codes against the
@@ -2408,8 +2408,9 @@ def check_link(torch, plan, refs, runs, S: np.ndarray, fasta_d: str) -> list:
         canonical = not extra
         if "resident" not in lk and not canonical:
             raise AssertionError(f"{name}: the directed front-end took no handle")
-        if canonical and "prefetched" not in lk:
-            raise AssertionError(f"{name}: no prefetched side codes: {lk}")
+        if canonical and (lk.get("sides", ())[-1:] != ("resident",)
+                          or float(lk["sides"][0]) != 0.0):
+            raise AssertionError(f"{name}: no side codes on the resident set: {lk}")
         if i == 0 and (deltas.downloads != 1 or any(deltas.rejections.values())):
             raise AssertionError(f"run A: gap format {deltas.downloads}, "
                                  f"rejections {deltas.rejections}")
@@ -2483,8 +2484,7 @@ def check_link(torch, plan, refs, runs, S: np.ndarray, fasta_d: str) -> list:
              f"{fe_io['front-end upload']:.4f} s)")
 
     # The handle's cutoff filter (run D, cutoff 2).
-    counter = KmerCounter.from_fasta(19, fasta_d, "", True, spss_ahead=True,
-                                     device=DEVICE)
+    counter = KmerCounter.from_fasta(19, fasta_d, "", True, device=DEVICE)
     launches0 = _launch_counts()
     (ks, n_cut), filt_s = _timed(torch, lambda: counter.to_kmer_set(2))
     filt_launches = _launches_since(launches0)["B3"]

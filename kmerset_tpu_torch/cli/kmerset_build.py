@@ -13,7 +13,8 @@ The counted set stays on the device for the front-end (ops/resident.py;
 a cutoff above 1 filters it there too), and on a slow link
 (KMERSET_TPU_LINK=slow, or a probed link under 1 GiB/s) the keys come
 down gap-encoded (ops/deltas.py) and the front-end's result as 1-byte
-side codes, launched by the count (spss_ahead, as the reference's).
+side codes, built in the SPSS phase (the reference's count launches them
+early when a build follows; the port's count computes the count alone).
 A comma-separated --device list (cuda:0,cuda:0,cuda:0,cuda:0 is four
 shards on one card) runs the count, the decode and every graph phase on
 a mesh of those shards (parallel/), the reference's forced mesh.  With
@@ -79,7 +80,7 @@ def main(argv=None) -> None:
         try:
             counter = KmerCounter.from_fasta(
                 cfg.k, args.file, args.decompressor, args.canonical,
-                spss_ahead=True, device=device, mesh=mesh,
+                device=device, mesh=mesh,
             )
         except core_io.IOError_ as e:
             logger.error("failed to parse FASTA file: %s", e)

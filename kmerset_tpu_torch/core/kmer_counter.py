@@ -16,12 +16,14 @@ the port's device count on the counter's device: in one shot
 counted set resident on the device (ops/resident.DeviceKmers, in
 `_device`, reference :226-246): _flush drops it, and to_kmer_set hands
 it to the KmerSet, filtered on the device above cutoff 1 (:315-343), so
-that the SPSS build's front-end takes it without an upload.  spss_ahead
-says a build follows (kmerset-build), so that on a slow link the count
-launches the front-end's side codes too (backend.device_count).  Left
-out by design: the deferred counts transfer and its host recount
-(:72-137), because the port has no host fallback and its counts are
-eager, so `counts` is a plain attribute.
+that the SPSS build's front-end takes it without an upload.  Left out by
+design: the deferred counts transfer and its host recount (:72-137),
+because the port has no host fallback and its counts are eager, so
+`counts` is a plain attribute; and the reference's flag that a build
+follows (:144), on which its count launches the slow link's side codes
+early: the port's count does not decide the graph front-end's route,
+which builds them in the SPSS phase on the resident set
+(ops/unitigs.device_unitig_sides).
 
 Counts saturate at value_max like the reference's AddWithMax with its
 uint8 default ValueType (reference: lib/core/kmer_counter.h:28-38,48).
@@ -99,8 +101,7 @@ class KmerCounter:
     @classmethod
     def from_fasta(
         cls, k: int, file_name: str, decompressor: str, canonical: bool,
-        value_max: int = DEFAULT_VALUE_MAX, spss_ahead: bool = False, *,
-        device, mesh=None,
+        value_max: int = DEFAULT_VALUE_MAX, *, device, mesh=None,
     ) -> "KmerCounter":
         """FASTA file (optionally piped through `decompressor`) -> counter.
         Raises core.io.IOError_ on unreadable or malformed input.  The
@@ -121,39 +122,31 @@ class KmerCounter:
                         raise core_io.IOError_(str(e)) from e
                     del data
                 sp.set(codes=int(codes.shape[0]))
-            return cls._from_codes(
-                k, codes, offsets, canonical, value_max, spss_ahead,
-                device=device, mesh=mesh,
-            )
+            return cls._from_codes(k, codes, offsets, canonical, value_max,
+                                   device=device, mesh=mesh)
 
     @classmethod
     def from_fasta_lines(
         cls, k: int, lines: List[str], canonical: bool,
-        value_max: int = DEFAULT_VALUE_MAX, spss_ahead: bool = False, *,
-        device, mesh=None,
+        value_max: int = DEFAULT_VALUE_MAX, *, device, mesh=None,
     ) -> "KmerCounter":
         reads = core_io.parse_fasta_lines(lines)
-        return cls.from_reads(
-            k, reads, canonical, value_max, spss_ahead, device=device, mesh=mesh
-        )
+        return cls.from_reads(k, reads, canonical, value_max, device=device,
+                              mesh=mesh)
 
     @classmethod
     def from_reads(
         cls, k: int, reads: List[str], canonical: bool,
-        value_max: int = DEFAULT_VALUE_MAX, spss_ahead: bool = False, *,
-        device, mesh=None,
+        value_max: int = DEFAULT_VALUE_MAX, *, device, mesh=None,
     ) -> "KmerCounter":
         codes, offsets = core_io.reads_to_codes(reads)
-        return cls._from_codes(
-            k, codes, offsets, canonical, value_max, spss_ahead, device=device,
-            mesh=mesh,
-        )
+        return cls._from_codes(k, codes, offsets, canonical, value_max,
+                               device=device, mesh=mesh)
 
     @classmethod
     def _from_codes(
         cls, k: int, codes: np.ndarray, offsets: np.ndarray, canonical: bool,
-        value_max: int = DEFAULT_VALUE_MAX, spss_ahead: bool = False, *,
-        device, mesh=None,
+        value_max: int = DEFAULT_VALUE_MAX, *, device, mesh=None,
     ) -> "KmerCounter":
         device = resolve_device(device)
         n_windows = codes.shape[0] - k + 1
@@ -172,7 +165,7 @@ class KmerCounter:
         else:
             uniq, counts, handle = backend.device_count(
                 codes, offsets, k, canonical, device=device,
-                value_max=value_max, resident=True, spss_ahead=spss_ahead,
+                value_max=value_max, resident=True,
             )
             counter = cls(
                 k, uniq, np.minimum(counts, value_max), value_max, device=device

@@ -25,11 +25,12 @@ The link formats (reference backend.py:141-200, 694-820): `_slow_link`
 says whether the host-device link is slow (KMERSET_TPU_LINK=fast|slow, or
 one 8 MB round trip on a CUDA device under 1 GiB/s; the CPU is fast).  On
 a slow link device_count downloads its sorted keys gap-encoded
-(ops/deltas.py) from DELTA_MIN_KEYS keys on, and, when a build follows
-(spss_ahead), launches the side codes of the graph front-end
-(ops/resident.DeviceKmers.prefetch_sides) before its downloads.  With
-resident=True it also returns the set resident on the device
-(ops/resident.py), which the front-end takes without an upload.  The
+(ops/deltas.py) from DELTA_MIN_KEYS keys on.  It leaves out the
+reference's side-code prefetch (:755-765): the count does not decide the
+graph front-end's route (side_code_route), which builds its side codes
+in the SPSS phase.  With resident=True device_count also returns the set
+resident on the device (ops/resident.py), which the front-end takes
+without an upload.  The
 reference's on-disk cache of the probe's verdict (_link_cache_path) and
 its backend liveness probe (_backend_alive) amortised a TPU backend dial
 across processes; a CUDA probe costs milliseconds, so the port probes once
@@ -184,8 +185,7 @@ def side_code_route(n: int, device) -> bool:
     side codes (1 B per k-mer, ops/unitigs.device_unitig_sides) and
     rebuilds the successor on the host (core/native.succ_from_sides): on a
     slow link, with the native library loaded, up to the rebuild's
-    native.MAX_SIDES_KMERS (reference core/spss.py:604 and the prefetch
-    gate, backend.py:755-765)."""
+    native.MAX_SIDES_KMERS (reference core/spss.py:604)."""
     return (0 < n <= native.MAX_SIDES_KMERS and _slow_link(device)
             and host_library_loaded())
 
@@ -367,7 +367,6 @@ def count_plan(what: str, n_windows: int, k: int, device) -> int:
 def device_count(
     codes: np.ndarray, offsets: np.ndarray, k: int, canonical: bool, *,
     device, value_max: int = 0, resident: bool = False,
-    spss_ahead: bool = False,
 ) -> Tuple:
     """Sorted distinct (canonical) k-mers of the fragment stream and their
     counts, counted on `device` in one shot: (keys int64, counts), and
@@ -378,12 +377,10 @@ def device_count(
     The reference's order (backend.py:694-820): on a slow link
     (_slow_link) and from DELTA_MIN_KEYS keys on, the gap encode of the
     keys is launched first (ops/deltas.py); then the handle is made from
-    the count's device outputs; when a build follows (spss_ahead) and the
-    canonical front-end will take the side-code route (side_code_route),
-    the handle's side codes are launched; then the keys are downloaded
-    (gap-encoded where the format takes them, else in their device dtype:
-    int32 for k <= 15, int64 above), then the counts; last the handle's
-    endpoints are stamped and its side codes start their download.
+    the count's device outputs; then the keys are downloaded (gap-encoded
+    where the format takes them, else in their device dtype: int32 for
+    k <= 15, int64 above), then the counts; last the handle's endpoints
+    are stamped.
     The span "count.stage" covers the pack and upload, "count.device"
     the launches to the counts' fetch."""
     with device_lock(device):
@@ -404,9 +401,6 @@ def device_count(
 
                 handle = DeviceKmers.from_count_outputs(keys, counts, n, k,
                                                         canonical)
-                if (handle is not None and spss_ahead and canonical
-                        and side_code_route(n, device)):
-                    handle.prefetch_sides()
             uniq = (deltas.fetch_delta(pending, n) if pending is not None
                     else None)
             if uniq is None:
@@ -415,7 +409,6 @@ def device_count(
             counts_h = _counts_fetch(counts, value_max)
         if handle is not None:
             handle.with_endpoints(uniq)
-            handle.start_sides_download()
         return (uniq, counts_h, handle) if resident else (uniq, counts_h)
 
 

@@ -42,7 +42,7 @@ import torch
 
 from . import backend
 from .compact import compact_select
-from .pack import MAX_K, SINGLE_MAX_K, key_sentinel
+from .pack import MAX_K, key_sentinel
 from .pack import canonical_windows as pack_windows
 
 # Cutoffs up to this stay shifted compares (_run_reaches); above it the
@@ -68,54 +68,42 @@ def _frag_window_validity(bounds: torch.Tensor, total: int, L: int, k: int):
     return valid[:L]
 
 
-def _no_mark(step: str) -> None:
-    pass
-
-
 def _check_k(k: int) -> None:
     if not 1 <= k <= MAX_K:
         raise ValueError(f"k={k}: the port counts k <= {MAX_K}")
 
 
-def _sort_windows(packed, L: int, k: int, canonical: bool, valid,
-                  mark=_no_mark) -> torch.Tensor:
+def _sort_windows(packed, L: int, k: int, canonical: bool,
+                  valid) -> torch.Tensor:
     """The window keys of the L packed codes (kernel B1 for k <= 15, B2
     above), the sentinel where `valid` is False, sorted."""
-    key = pack_windows(packed, L, k, canonical, valid)
-    mark("B1 pack" if k <= SINGLE_MAX_K else "B2 pack")
-    s = torch.sort(key).values
-    mark("sort")
-    return s
+    return torch.sort(pack_windows(packed, L, k, canonical, valid)).values
 
 
 def sorted_window_keys(packed, bounds, total: int, L: int, k: int,
-                       canonical: bool, mark=_no_mark) -> torch.Tensor:
+                       canonical: bool) -> torch.Tensor:
     """The window keys of the staged codes (kernel B1 for k <= 15, B2
     above), sorted; invalid windows hold the sentinel and sort last."""
     _check_k(k)
     n_keys = L - (k - 1)
     valid = _frag_window_validity(bounds, total, L, k)[:n_keys].contiguous()
-    mark("validity")
-    return _sort_windows(packed, L, k, canonical, valid, mark)
+    return _sort_windows(packed, L, k, canonical, valid)
 
 
-def _run_heads(s: torch.Tensor, k: int, mark=_no_mark):
+def _run_heads(s: torch.Tensor, k: int):
     """The sorted keys `s` (invalid windows hold the sentinel and sort
     last) with their live and run-head masks (reference count.py:253-282,
     the single-lane and pair branches)."""
     prev = torch.cat([s.new_full((1,), -1), s[:-1]])
     live = s != key_sentinel(k)
     boundary = live & (s != prev)
-    mark("run heads")
     return s, live, boundary
 
 
-def _sorted_runs(packed, bounds, total: int, L: int, k: int, canonical: bool,
-                 mark=_no_mark):
+def _sorted_runs(packed, bounds, total: int, L: int, k: int, canonical: bool):
     """Sorted window keys of the staged codes (int32 for k <= 15, int64
     above) with their live and run-head masks."""
-    s = sorted_window_keys(packed, bounds, total, L, k, canonical, mark)
-    return _run_heads(s, k, mark)
+    return _run_heads(sorted_window_keys(packed, bounds, total, L, k, canonical), k)
 
 
 def _run_lengths(boundary: torch.Tensor, live: torch.Tensor) -> torch.Tensor:
@@ -144,32 +132,27 @@ def _run_reaches(s: torch.Tensor, live: torch.Tensor, c: int):
 
 
 def count_kmers_frag(packed, bounds, total: int, L: int, k: int,
-                     canonical: bool, mark=_no_mark):
+                     canonical: bool):
     """Counts the canonical (or forward) k-mers of the L codes in
     `packed` (2-bit, kmerio_pack2 layout) split at the fragment
     boundaries `bounds` (int32: offsets[1:], possibly padded by repeating
     `total`).  Returns (keys, counts, n_unique): the sorted distinct keys
     and their counts, (n_unique,) keys (int32 for k <= 15, int64 above)
-    and int32 counts (reference count.py:418-429, trimmed).  `mark(step)`
-    is called after each step; the profiling tool
-    (tools/profile_count.py) records a CUDA event there."""
-    s, live, boundary = _sorted_runs(packed, bounds, total, L, k, canonical, mark)
-    return count_runs(s, live, boundary, mark)
+    and int32 counts (reference count.py:418-429, trimmed)."""
+    return count_runs(*_sorted_runs(packed, bounds, total, L, k, canonical))
 
 
-def count_runs(s, live, boundary, mark=_no_mark):
+def count_runs(s, live, boundary):
     """(keys, counts, n_unique) of the sorted keys `s` whose live prefix
     is `live` and whose run heads are `boundary`: the run heads and their
     positions compacted by kernel B3, and each count the distance to the
     next run head (the last: to the live count)."""
     pos = torch.arange(s.shape[0], dtype=torch.int32, device=s.device)
     (ckeys, cpos), n_sel = compact_select([s, pos], boundary)
-    mark("B3 compact")
     n = int(backend.download("n_unique", n_sel))
     # Each run ends where the next begins; the last at the live count.
     ends = torch.cat([cpos[1:n], live.sum(dtype=torch.int32).view(1)])[:n]
     counts = ends - cpos[:n]
-    mark("counts")
     return ckeys[:n], counts, n
 
 

@@ -2,15 +2,15 @@
 SPSS build.
 
 The port's copy of kmerset_tpu/ops/resident.py: DeviceKmers with the
-reference's slots and methods (:97-264).  The count's device outputs
-become a handle before their download (ops/backend.device_count); the
-handle rides KmerCounter -> KmerSet -> KmerSetCompact, and the graph
-front-end (ops/unitigs.py) takes its tensor instead of uploading the host
-array again.  It is a hint, never a source of truth: the host array stays
-authoritative, and a consumer uses the handle only after valid_for (k,
-length and both endpoint values against the host array) and `on` (the
-front-end's device); otherwise it uploads the host array, as it would
-without one.
+reference's slots and methods (:97-264), less the side-code prefetch
+(below).  The count's device outputs become a handle before their
+download (ops/backend.device_count); the handle rides KmerCounter ->
+KmerSet -> KmerSetCompact, and the graph front-end (ops/unitigs.py)
+takes its tensor instead of uploading the host array again.  It is a
+hint, never a source of truth: the host array stays authoritative, and a
+consumer uses the handle only after valid_for (k, length and both
+endpoint values against the host array) and `on` (the front-end's
+device); otherwise it uploads the host array, as it would without one.
 
 What differs from the reference's, by design:
 - `arr` is the count's key output trimmed to n, as int64 at every k: the
@@ -20,11 +20,13 @@ What differs from the reference's, by design:
 - filtered compacts the kept keys with kernel B3 (ops/compact.py) where
   min(count, value_max) >= cutoff; the reference sorts them to the front
   behind a fill value (:72-90).  Both give the same sorted prefix;
-- the side codes prefetched for the slow link's front-end
-  (prefetch_sides) are launched on the current stream, and
-  start_sides_download copies them into pinned host memory on a side
-  stream and records an event that sides_host waits on.  Pinned memory
-  exists only on CUDA: on the CPU the side codes are computed at once;
+- the handle is the counted set alone: the reference's side-code
+  prefetch and the start of its download (:122-152), which launch the
+  slow link's side codes from the count so that their download overlaps
+  it, are left out.  The count does not decide the graph front-end's
+  route: on a slow link the front-end builds its side codes in the SPSS
+  phase, on this handle's tensor without an upload
+  (ops/unitigs.device_unitig_sides);
 - an error raises: the reference's handle returns None and logs a
   fallback.
 """
@@ -36,7 +38,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from . import backend, unitigs
+from . import backend
 from .compact import compact_select
 
 
@@ -45,14 +47,9 @@ class DeviceKmers:
 
     arr: (n,) int64 tensor; counts: aligned int32 counts (None once
     filtered); first/last: the host array's endpoint values for valid_for
-    (None until stamped); sides: the prefetched side codes on the device
-    (None unless prefetch_sides ran), and sides_download their host copy
-    and its completion event once start_sides_download ran."""
+    (None until stamped)."""
 
-    __slots__ = (
-        "arr", "counts", "n", "k", "canonical", "first", "last", "sides",
-        "sides_download",
-    )
+    __slots__ = ("arr", "counts", "n", "k", "canonical", "first", "last")
 
     def __init__(self, arr, counts, n, k, canonical, first, last):
         self.arr = arr
@@ -62,8 +59,6 @@ class DeviceKmers:
         self.canonical = canonical
         self.first = first
         self.last = last
-        self.sides = None
-        self.sides_download = None
 
     @classmethod
     def from_count_outputs(
@@ -139,43 +134,6 @@ class DeviceKmers:
         self.first = int(kmers[0])
         self.last = int(kmers[-1])
         return self
-
-    def prefetch_sides(self) -> None:
-        """Launches the front-end's side codes (ops/unitigs.dispatch_sides)
-        on the current stream now, so that the SPSS phase collects them
-        (sides_host) instead of computing them.  The side codes describe
-        the canonical graph only: a forward set's handle does nothing."""
-        if self.canonical:
-            self.sides = unitigs.dispatch_sides(self.arr, self.k)
-
-    def start_sides_download(self) -> None:
-        """Starts the copy of the prefetched side codes to the host: on
-        CUDA into pinned memory on a side stream, with an event recorded
-        behind it, so that the copy crosses the link while the host works
-        toward the SPSS phase.  On the CPU the codes are already there."""
-        if self.sides is None:
-            return
-        if self.sides.device.type != "cuda":
-            self.sides_download = (self.sides, None)
-            return
-        host = torch.empty(self.n, dtype=torch.uint8, pin_memory=True)
-        stream = torch.cuda.Stream(self.sides.device)
-        stream.wait_stream(torch.cuda.current_stream(self.sides.device))
-        with torch.cuda.stream(stream):
-            host.copy_(self.sides, non_blocking=True)
-            done = torch.cuda.Event()
-            done.record(stream)
-        self.sides_download = (host, done)
-
-    def sides_host(self) -> np.ndarray:
-        """The prefetched side codes on the host: waits for the download
-        that start_sides_download began, or downloads them now."""
-        if self.sides_download is None:
-            return backend.download("side codes", self.sides)
-        host, done = self.sides_download
-        if done is not None:
-            done.synchronize()
-        return host.numpy()
 
     def graph_input(self) -> torch.Tensor:
         """The tensor in the front-end's input layout (int64 keys)."""

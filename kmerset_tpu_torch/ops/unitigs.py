@@ -222,20 +222,13 @@ def device_unitig_sides(A: np.ndarray, k: int, *, device, resident=None) -> np.n
     """The (n,) uint8 side codes of the host array A (sorted unique
     canonical int64 k-mers), built on `device`, on the host (reference
     device_unitig_sides, unitigs.py:113-144): the 1 B/k-mer link format
-    that core/native.succ_from_sides rebuilds the successor from.  A
-    resident handle's prefetched side codes are collected as they are
-    (DeviceKmers.sides_host); else they are built on its tensor, or on A
-    uploaded.  Logs the upload, device and download seconds at debug
-    level."""
+    that core/native.succ_from_sides rebuilds the successor from, built
+    on a resident handle's tensor, or on A uploaded.  The reference also
+    collects codes that the count prefetched (:121-126); the port's count
+    prefetches none (ops/resident.py).  Logs the upload, device and
+    download seconds at debug level."""
     n = int(A.shape[0])
     dev = resolve_device(device)
-    if resident is not None and resident.sides is not None:
-        _set_on_device(A, dev, resident)  # the same checks
-        with trace.timed("front_end.download", prefetched=True) as sp:
-            out = resident.sides_host()
-        logger.debug("unitigs: side codes prefetched, download wait %.4f s "
-                     "(%d k-mers, %d B)", sp.seconds, n, out.nbytes)
-        return out
     with backend.device_lock(dev):
         At, up_s = _set_on_device(A, dev, resident)
         with trace.timed("front_end.device") as dv:

@@ -76,8 +76,7 @@ def test_spss_text_golden_counted_and_built(tmp_path, link):
     and the dump decodes back to them."""
     path = os.path.join(GOLDEN, "tiny.spss.txt")
     expected = np.array(sorted(_kmers_of_file(path)))
-    counter = KmerCounter.from_reads(K, _lines(path), False, spss_ahead=True,
-                                     device="cpu")
+    counter = KmerCounter.from_reads(K, _lines(path), False, device="cpu")
     ks, n_cut = counter.to_kmer_set(1)
     assert n_cut == 0 and ks.device is not None
     np.testing.assert_array_equal(ks.kmers, expected)

@@ -55,8 +55,7 @@ for i in range(2):
         f.write(">g\n" + "".join("ACGT"[c] for c in mut) + "\n")
     kmerset_build.main(["--device", "cpu", "--k", "15", "--check", "--out", out, fa])
     sets.append(out)
-# The same build on a slow link (the side-code route, the count's
-# prefetch): the same dump.
+# The same build on a slow link (the side-code route): the same dump.
 os.environ["KMERSET_TPU_LINK"] = "slow"
 slow_out = os.path.join(work, "slow.txt")
 kmerset_build.main(["--device", "cpu", "--k", "15", "--check", "--out", slow_out, fa])
@@ -217,24 +216,6 @@ def test_chip_smoke_fails_without_cuda(tmp_path):
         )
         assert proc.returncode != 0
         assert proc.stdout == ""
-
-
-def test_profile_tool_refuses_missing_cuda(tmp_path):
-    if torch.cuda.is_available():
-        pytest.skip("a CUDA device is present")
-    from kmerset_tpu_torch.tools import profile_count
-
-    with pytest.raises(RuntimeError, match="is_available"):
-        profile_count.main([str(tmp_path / "none.fa")])
-
-
-def test_pool_timing_tool_refuses_missing_cuda(tmp_path):
-    if torch.cuda.is_available():
-        pytest.skip("a CUDA device is present")
-    from kmerset_tpu_torch.tools import time_pool
-
-    with pytest.raises(RuntimeError, match="is_available"):
-        time_pool.main([str(tmp_path / "none.fa")])
 
 
 _POOL = r"""

@@ -164,7 +164,7 @@ def test_front_end_on_handle_makes_no_upload(monkeypatch, k, canonical, link, up
     set without a handle."""
     monkeypatch.setattr(backend, "_slow_link", lambda device: link == "slow")
     counter = KmerCounter.from_reads(k, _reads(k, k + 1), canonical,
-                                     spss_ahead=True, device="cpu")
+                                     device="cpu")
     ks, _ = counter.to_kmer_set(1)
     assert ks.device is not None
     build = spss.get_unitigs_canonical if canonical else spss.get_unitigs
@@ -175,40 +175,6 @@ def test_front_end_on_handle_makes_no_upload(monkeypatch, k, canonical, link, up
     assert uploads == [ks.kmers.shape]
     np.testing.assert_array_equal(got.codes, want.codes)
     np.testing.assert_array_equal(got.offsets, want.offsets)
-
-
-def test_prefetched_side_codes_collected_without_recompute(monkeypatch):
-    """A slow link's count that a build follows launches the side codes;
-    the build collects them (the same bytes as built on demand) and
-    builds none."""
-    monkeypatch.setattr(backend, "_slow_link", lambda device: True)
-    k = 19
-    counter = KmerCounter.from_reads(k, _reads(k, 8), True, spss_ahead=True,
-                                     device="cpu")
-    h = counter._device
-    assert h.sides is not None and h.sides_download is not None
-    want = unitigs.device_unitig_sides(counter.kmers, k, device="cpu")
-    ks, _ = counter.to_kmer_set(1)
-
-    def boom(*a, **kw):
-        raise AssertionError("prefetched side codes built again")
-
-    monkeypatch.setattr(unitigs, "dispatch_sides", boom)
-    np.testing.assert_array_equal(
-        unitigs.device_unitig_sides(ks.kmers, k, device="cpu", resident=ks.device), want)
-    spss.get_unitigs_canonical(ks, device="cpu")
-
-
-@pytest.mark.parametrize("canonical,spss_ahead,link", [
-    (False, True, "slow"), (True, False, "slow"), (True, True, "fast"),
-])
-def test_no_prefetch_off_the_side_code_route(monkeypatch, canonical, spss_ahead, link):
-    """Side codes are launched only for a canonical count that a build
-    follows on a slow link."""
-    monkeypatch.setattr(backend, "_slow_link", lambda device: link == "slow")
-    counter = KmerCounter.from_reads(19, _reads(19, 9), canonical,
-                                     spss_ahead=spss_ahead, device="cpu")
-    assert counter._device is not None and counter._device.sides is None
 
 
 def test_adds_drop_the_handle():
@@ -295,14 +261,30 @@ def genomes(tmp_path_factory):
 def test_build_dump_equals_reference_on_both_links(monkeypatch, tmp_path, genomes, k, extra):
     """The slice as a whole: kmerset-build --device cpu with
     KMERSET_TPU_LINK=slow (the gap-encoded keys where the plan takes them,
-    the side-code route with the count's prefetch) and with fast writes
-    the reference host build's dump, byte for byte."""
+    the side-code route) and with fast writes the reference host build's
+    dump, byte for byte.  The slow canonical build makes its side codes
+    once, in the SPSS phase, from the count's handle with no upload."""
     fasta = genomes[400_000 if k == 15 else 60_000]
     monkeypatch.setattr(backend, "DELTA_MIN_KEYS", 1 << 10)
     monkeypatch.setattr(deltas, "downloads", 0)
-    collected = []
-    monkeypatch.setattr(DeviceKmers, "sides_host",
-                        lambda self, f=DeviceKmers.sides_host: collected.append(1) or f(self))
+    built, in_sides = [], []
+    real_sides, real_upload = spss.device_unitig_sides, backend.upload
+
+    def upload_spy(what, *a, **kw):
+        if in_sides:
+            built.append(("upload", what))
+        return real_upload(what, *a, **kw)
+
+    def sides_spy(A, k, *, device, resident=None):
+        built.append(("sides", resident is not None))
+        in_sides.append(1)
+        try:
+            return real_sides(A, k, device=device, resident=resident)
+        finally:
+            in_sides.pop()
+
+    monkeypatch.setattr(backend, "upload", upload_spy)
+    monkeypatch.setattr(spss, "device_unitig_sides", sides_spy)
     dumps = {}
     for link in ("slow", "fast"):
         monkeypatch.setenv("KMERSET_TPU_LINK", link)
@@ -310,7 +292,8 @@ def test_build_dump_equals_reference_on_both_links(monkeypatch, tmp_path, genome
         kmerset_build.main(["--device", "cpu", "--k", str(k), *extra, "--check",
                             "--out", str(dumps[link]), fasta])
     assert deltas.downloads == (1 if k == 15 else 0)
-    assert collected == ([] if extra or native.get_lib() is None else [1])
+    assert built == ([] if extra or native.get_lib() is None
+                     else [("sides", True)])
     want = tmp_path / "ref.txt"
     monkeypatch.setenv("KMERSET_TPU_FORCE_BACKEND", "host")
     monkeypatch.setenv("KMERSET_TPU_LINK", "fast")

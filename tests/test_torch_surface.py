@@ -95,6 +95,13 @@ NOT_PORTED = {
     "core.kmer_counter.KmerCounter.counts": (
         BY_DESIGN, "a property for the deferred counts download; the port's "
                    "counts are eager, a plain attribute"),
+    "ops.resident.DeviceKmers.prefetch_sides": (
+        BY_DESIGN, "the count's launch of the slow link's side codes; the "
+                   "side codes are built in the SPSS phase on the handle's "
+                   "tensor (ops/unitigs.device_unitig_sides)"),
+    "ops.resident.DeviceKmers.start_sides_download": (
+        BY_DESIGN, "the download of the count's side codes; see "
+                   "prefetch_sides"),
     "parallel.mesh.make_mesh": (
         BY_DESIGN, "a jax.sharding mesh of the visible devices; the port's is "
                    "parallel/mesh.Mesh over a list of torch devices"),
