@@ -30,7 +30,10 @@ itself on the CPU; and (phase 4w) kernel W1, the canonical unitig walk
 and emission, stage by stage against its plain version at the assembly
 cell's shape (4.6M k-mers at k = 15), and core/spss.get_unitigs_canonical
 with the device walk against the host walk, byte for byte, at k = 15 and
-23.  Each kernel is timed at the main path's shapes beside
+23; and (phase 4j) kernel J1, the path cover's candidate overlap edges,
+against its plain version and the host's native join and dedup at the
+same shape, with its peak device bytes a unitig against
+ops/backend.EDGES_BYTES_PER_UNITIG.  Each kernel is timed at the main path's shapes beside
 its bound (the bytes it must move over the card's 3.35 TB/s), its plain
 version, its wrapper's host time per call and, for B3, the one PyTorch
 call that computes the same function (`lane[keep]` per lane), at the
@@ -173,7 +176,7 @@ PACK_OPS_PER_WINDOW = 24
 COMPACT_OPS_PER_ELEMENT = 4
 COMPACT_OPS_PER_LANE_ELEMENT = 12
 # The kernels whose launches the runs count: the tracer's launch.<name>.
-KERNELS = ("B1", "B2", "B3", "W1")
+KERNELS = ("B1", "B2", "B3", "W1", "J1")
 # The tracer's counts of the canonical builds' sets walked on the card
 # (kernel W1) and on the host, which the runs count beside the launches.
 WALKS = ("walk.device", "walk.host")
@@ -710,6 +713,105 @@ def check_walk(torch, rng) -> dict:
         say("4w", f"get_unitigs_canonical k={k}: {len(got)} unitigs, device "
                   "walk byte-identical to the host walk")
     return row
+
+
+def check_overlap(torch, rng) -> dict:
+    """Kernel J1 (csrc/overlap.cu: the path cover's candidate overlap
+    edges) against its plain version and the host's native join and dedup
+    on the card, at the assembly cell's shape: the canonical unitigs of a
+    genome of E. coli K-12's 4,641,652 bases as 10 kb records at k = 15.
+    Its two launches are timed by CUDA events, beside the bytes bound (the
+    unitigs' ends read once, the kept int32 ports written once), the
+    wrapper's wall (the sorts, the scan and the count's download), the
+    whole route's wall in the path cover (the ends' upload and the kept
+    edges' download too), the plain version's time and the host join's
+    and dedup's, which J1 replaces."""
+    from kmerset_tpu_torch.core import native, spss
+    from kmerset_tpu_torch.core.kmer_set import KmerSet
+    from kmerset_tpu_torch.ops import backend, overlap
+    from kmerset_tpu_torch.ops import count as count_ops
+    from kmerset_tpu_torch.utils import trace
+
+    k = 15
+    n_bases = 4_641_652
+    codes = rng.integers(0, 4, n_bases, dtype=np.uint8)
+    offsets = np.append(np.arange(0, n_bases, 10_000), n_bases)
+    staged = backend.stage(codes, offsets, k, "cuda")
+    A = count_ops.count_to_set_frag(*staged, k, True, 1)[0].cpu().numpy()
+    unitigs = spss.get_unitigs_canonical(KmerSet(k, A, _sorted=True), device="cuda")
+    P, S = unitigs.first_kmers(k), unitigs.last_kmers(k)
+    n = P.shape[0]
+    t0 = time.perf_counter()
+    raw = native.overlap_edges(P, S, k)
+    want = spss._dedup_port_edges(*raw, n)
+    join_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    Pc, Sc = torch.from_numpy(P).cuda(), torch.from_numpy(S).cuda()
+    before = trace.counts().get("launch.J1", 0)
+    got = overlap.edges(Pc, Sc, k)
+    torch.cuda.synchronize()
+    per_unitig = (torch.cuda.max_memory_allocated() - base - got.nbytes) / n
+    if trace.counts().get("launch.J1", 0) - before != 2:
+        raise AssertionError("J1: not two launches a call")
+    t0 = time.perf_counter()
+    plain = overlap.edges_plain(torch.from_numpy(P), torch.from_numpy(S), k)
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    _same_as_plain(torch, "J1 edges", (got.cpu(),), (plain,))
+    if not all(np.array_equal(g, w) for g, w in zip(got.cpu().numpy(), want)):
+        raise AssertionError("J1: the edges differ from the native join's")
+    m = got.shape[1]
+
+    lib = overlap._lib()[0]
+    p_keys, p_ord = torch.sort(Pc, stable=True)
+    s_keys, s_ord = torch.sort(Sc, stable=True)
+    tables = (p_keys.data_ptr(), p_ord.data_ptr(), s_keys.data_ptr(),
+              s_ord.data_ptr())
+    ends = torch.empty(overlap.PASSES * n, dtype=torch.int64, device="cuda")
+    out = torch.empty(2 * m, dtype=torch.int32, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    count_ms = time_ms(lambda: lib.kmerset_overlap_count(
+        Pc.data_ptr(), Sc.data_ptr(), n, k, *tables, ends.data_ptr(), stream), 5, 5)
+    ends.cumsum_(0)
+    fill_ms = time_ms(lambda: lib.kmerset_overlap_fill(
+        Pc.data_ptr(), Sc.data_ptr(), n, k, *tables, ends.data_ptr(), m,
+        out.data_ptr(), stream), 5, 5)
+    if not torch.equal(out.view(2, m), got):
+        raise AssertionError("J1: the timed fill differs")
+    wall, route = [], []
+    for _ in range(7):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        overlap.edges(Pc, Sc, k)
+        torch.cuda.synchronize()
+        wall.append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        spss._device_edges(P, S, k, "cuda")
+        route.append((time.perf_counter() - t0) * 1e3)
+    n_bytes = P.nbytes + S.nbytes + out.nbytes
+    bound = bound_ms(n_bytes, 0)
+    say("4j", f"J1 edges k={k}: {n} unitigs, {raw[0].shape[0]} raw and {m} "
+              "kept edges; equal to the plain version and the native join")
+    say("4j", f"J1 device ms: count {count_ms:.4f}, fill {fill_ms:.4f} (sum "
+              f"{count_ms + fill_ms:.4f}); wrapper wall median "
+              f"{statistics.median(wall):.4f} ms; route wall median "
+              f"{statistics.median(route):.4f} ms; bytes bound {bound[0]:.5f} ms "
+              f"({n_bytes} B); plain {plain_ms:.1f} ms; host join and dedup "
+              f"{join_ms:.1f} ms; peak {per_unitig:.2f} B a unitig beside the "
+              f"edges (EDGES_BYTES_PER_UNITIG {backend.EDGES_BYTES_PER_UNITIG})")
+    if per_unitig > backend.EDGES_BYTES_PER_UNITIG:
+        raise AssertionError("J1: its peak exceeds EDGES_BYTES_PER_UNITIG")
+    return {"name": "J1 edges: overlap.edges", "route": "cuda",
+            "source": "kmerset_tpu_torch/csrc/overlap.cu",
+            "replaces": "native/kmerio.c kmerio_overlap_edges_fp, "
+                        "kmerio_overlap_edges_part, kmerio_dedup_edges "
+                        "(no Pallas kernel)",
+            "max_abs_err": 0, "ms": count_ms + fill_ms, "plain_ms": plain_ms,
+            "bound_ms": bound[0], "bound_by": "launches and the binary "
+            "searches' dependent loads", "library_ms": None,
+            "host_ms": join_ms, "wall_ms": statistics.median(wall),
+            "route_ms": statistics.median(route)}
 
 
 def _same_as_plain(torch, what: str, got, want) -> None:
@@ -2936,6 +3038,7 @@ def main() -> int:
     check_front_end(torch, rng)
     # Its own generator: the later phases' inputs do not depend on it.
     kernels.append(check_walk(torch, np.random.default_rng(SEED + 4)))
+    kernels.append(check_overlap(torch, np.random.default_rng(SEED + 5)))
 
     fasta_a = os.path.join(WORK, "genome.fa")
     write_genome_fasta(fasta_a, rng, 1 << 24)

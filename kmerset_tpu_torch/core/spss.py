@@ -54,7 +54,12 @@ The port's own editions:
   handle where there is a valid one, :742-746) or on the mesh
   (driver.mesh_side_tables) where the reference builds them on the host
   (under its host pin) or through ops/neighbors.device_side_tables;
-- get_spss_canonical (:1082-1084);
+- _candidate_port_edges_canonical (:778-845): on a CUDA device with no
+  mesh, where backend.edges_route admits the unitigs, the join and the
+  dedup are kernel J1 (ops/overlap.py, _device_edges): the same edges in
+  the same order from the host-packed first and last k-mers;
+- get_spss_canonical (:1082-1084), which hands its device to the path
+  cover;
 - decode_unique_kmers (:1087-1118) and get_kmer_set_from_spss
   (:1121-1124), which decode on the mesh (driver.mesh_count), or through
   the port's device_unique, in halo chunks (device_unique_chunked) above
@@ -73,6 +78,7 @@ from typing import List, Tuple
 import numpy as np
 
 from ..ops import backend
+from ..ops import overlap as overlap_ops
 from ..ops import walk as walk_ops
 from ..ops.unitigs import (
     device_side_tables_directed,
@@ -760,7 +766,7 @@ def get_unitigs(kmer_set: KmerSet, *, device, mesh=None) -> PackedStrings:
 
 
 def _candidate_port_edges_canonical(
-    unitigs: PackedStrings, k: int, mesh=None
+    unitigs: PackedStrings, k: int, mesh=None, device=None
 ) -> Tuple[np.ndarray, np.ndarray]:
     """All (k-1)-overlap port edges of the bidirected unitig graph.
 
@@ -772,13 +778,19 @@ def _candidate_port_edges_canonical(
     Returned deduplicated, ordered by first-discovery priority.  On a
     mesh the join runs there (driver.mesh_overlap_edges) up to k = 30; the
     reference keeps k = 31 on the host join (parallel/mesh.py:1047-1050),
-    and so does the port.
+    and so does the port.  With no mesh, where backend.edges_route sends
+    the unitigs to `device`, kernel J1 joins and dedups there
+    (_device_edges).  The counters edges.device and edges.host count the
+    calls each way.
     """
     n = len(unitigs)
     with _phase("spss.first_last", "spss: first/last kmers"):
         P = unitigs.first_kmers(k)
         S = unitigs.last_kmers(k)
 
+    if mesh is None and device is not None and backend.edges_route(n, device):
+        return _device_edges(P, S, k, device)
+    trace.add("edges.host")
     if k <= mesh_driver.MAX_MESH_OVERLAP_K and mesh_driver.should_use_mesh_graph(mesh, n):
         a, b = mesh_driver.mesh_overlap_edges(P, S, k, mesh=mesh)
         return _dedup_port_edges(a, b, n)
@@ -824,6 +836,24 @@ def _candidate_port_edges_canonical(
     a = np.concatenate(all_a) if all_a else np.empty(0, np.int64)
     b = np.concatenate(all_b) if all_b else np.empty(0, np.int64)
     return _dedup_port_edges(a, b, n)
+
+
+def _device_edges(P: np.ndarray, S: np.ndarray, k: int, device):
+    """The host join's deduplicated edges, found on `device` by kernel J1
+    (ops/overlap.py) from the unitigs' first and last k-mers, in the same
+    phases and debug lines: the join times the upload and J1 to a
+    synchronised end, the dedup (which J1 has done) the download of the
+    kept int32 ports and their widening.  A CUDA fault raises: no host
+    join hides it."""
+    with backend.device_lock(device):
+        with _phase("spss.overlap_join", "spss: overlap join"):
+            ends = backend.upload("unitig ends", np.stack([P, S]), device)
+            pairs = overlap_ops.edges(ends[0], ends[1], k)
+            backend.sync(pairs.device)
+        with _phase("spss.edge_dedup", "spss: edge dedup"):
+            pa, pb = backend.download("overlap edges", pairs).astype(np.int64)
+    trace.add("edges.device")
+    return pa, pb
 
 
 def _dedup_port_edges(
@@ -998,16 +1028,18 @@ def _emit_matched_paths(
 
 
 def get_spss_canonical_from_unitigs(
-    unitigs: PackedStrings, k: int, fast: bool = True, mesh=None
+    unitigs: PackedStrings, k: int, fast: bool = True, mesh=None, device=None
 ) -> PackedStrings:
     """Greedy path cover of the bidirected unitig graph
     (reference: lib/core/spss.h:1039-1858); with a `mesh`, its overlap
-    edges, matching, cycle breaking and chain grouping run there."""
+    edges, matching, cycle breaking and chain grouping run there; with
+    a CUDA `device` and no mesh, its overlap edges may run there
+    (_candidate_port_edges_canonical)."""
     n = len(unitigs)
     if n == 0:
         return PackedStrings.empty()
     with _phase("spss.candidate_edges", "spss: candidate overlap edges"):
-        pa, pb = _candidate_port_edges_canonical(unitigs, k, mesh)
+        pa, pb = _candidate_port_edges_canonical(unitigs, k, mesh, device)
     with _phase("spss.matching", "spss: greedy matching"):
         if not fast:
             match = _sequential_matching(n, pa, pb)
@@ -1064,7 +1096,8 @@ def get_spss_canonical(
 ) -> PackedStrings:
     unitigs = get_unitigs_canonical(kmer_set, device=device, mesh=mesh)
     with _phase("spss.path_cover", "spss: path cover"):
-        return get_spss_canonical_from_unitigs(unitigs, kmer_set.k, fast, mesh)
+        return get_spss_canonical_from_unitigs(unitigs, kmer_set.k, fast, mesh,
+                                               device)
 
 
 def decode_unique_kmers(

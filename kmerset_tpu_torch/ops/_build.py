@@ -151,6 +151,11 @@ SIGNATURES = {
     # bad, stream
     "kmerset_walk_emit": ([_P, _P, _I64, _I32, _I64] + [_P] * 7 + [_I64] * 3
                           + [_P] * 5, _I32),
+    # P, S, n, k, p_keys, p_ord, s_keys, s_ord, counts, stream
+    "kmerset_overlap_count": ([_P, _P, _I64, _I32] + [_P] * 6, _I32),
+    # P, S, n, k, p_keys, p_ord, s_keys, s_ord, ends, m, out, stream
+    "kmerset_overlap_fill": ([_P, _P, _I64, _I32] + [_P] * 5 + [_I64, _P, _P],
+                             _I32),
     "kmerset_error_string": ([_I32], ctypes.c_char_p),
 }
 

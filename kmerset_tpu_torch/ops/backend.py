@@ -109,6 +109,20 @@ HOST_BUDGET = 2 << 30
 # H100, kmerset_tpu_torch/tools/time_walk.py, PERF.md section 6).
 WALK_MIN_KMERS = 1 << 17
 
+# Fewest unitigs from which the canonical path cover on a CUDA device
+# finds its candidate overlap edges there (kernel J1, ops/overlap.py)
+# instead of the host's hash join and dedup.  Below it the upload, the
+# sorts, the launches and the two waits cost more than the host's probes
+# (genomes as 10 kb records at k = 15, host over device: 458 unitigs
+# 0.43x, 1,783 1.04x, 6,873 2.5x, 108,526 7.9x; one H100,
+# kmerset_tpu_torch/tools/time_edges.py, PERF.md section 6).
+EDGES_MIN_UNITIGS = 1 << 11
+# Peak device bytes per unitig of J1 beside its output: P and S (16),
+# their sorted copies and ids (32), the 12 probes' counts (96) and the
+# sorts' scratch; 144.01 measured on one H100 at the assembly cell's
+# shape (chip_smoke.py phase 4j, PERF.md section 6), rounded up.
+EDGES_BYTES_PER_UNITIG = 192
+
 # Keys from which device_count downloads its keys gap-encoded on a slow
 # link (reference backend.py:691).
 DELTA_MIN_KEYS = 1 << 20
@@ -203,6 +217,17 @@ def walk_route(n: int, device) -> bool:
             and n <= walk_ceiling(memory_budget(device)))
 
 
+def edges_route(n: int, device) -> bool:
+    """Whether the canonical path cover of n unitigs on `device` finds its
+    candidate overlap edges on the device (kernel J1, ops/overlap.py): on
+    CUDA, from EDGES_MIN_UNITIGS unitigs, with the native library loaded
+    (its first and last k-mers are packed on the host, as the host join
+    takes them), up to edges_ceiling of the device's memory budget."""
+    return (torch.device(device).type == "cuda" and n >= EDGES_MIN_UNITIGS
+            and host_library_loaded()
+            and n <= edges_ceiling(memory_budget(device)))
+
+
 def memory_budget(device) -> int:
     """Bytes one device step may plan to use on `device`: on CUDA,
     DEVICE_MEMORY_SHARE of the card's free memory plus the blocks the
@@ -245,6 +270,14 @@ def walk_ceiling(budget: int) -> int:
     as the front-end's one-shot arrays do, so that the bounded
     front-end's query chunk fits beside them; at least 1."""
     return max(1, budget // (2 * WALK_BYTES_PER_KMER))
+
+
+def edges_ceiling(budget: int) -> int:
+    """The most unitigs kernel J1 takes within `budget` bytes: its arrays
+    (EDGES_BYTES_PER_UNITIG) take at most half of it, so that the kept
+    edges fit beside them, and fewer than 2^30, so that a port fits
+    int32; at least 1."""
+    return max(1, min((1 << 30) - 1, budget // (2 * EDGES_BYTES_PER_UNITIG)))
 
 
 def front_end_plan(n: int, budget: int, keep: bool = False) -> Tuple[bool, int]:
