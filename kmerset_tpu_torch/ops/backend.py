@@ -17,9 +17,11 @@ and the decode run in halo chunks of at most that many windows and merge
 the sorted runs on the host: the port's copies of the reference's
 _merge_count_pair and _merge_cascade (backend.py:522-567), and its own
 keys-only _merge_key_pair.  count_plan makes the one-shot-or-chunked
-decision of a count or decode from one read of the budget and logs it at
-debug level (windows, chunks, ceiling and budget); the chunked paths log
-the seconds of their host merge.
+decision of a count or decode from one read of the budget, logs it at
+debug level and holds it in the span "<what>.plan" (windows, chunks,
+chunk, ceiling and budget); the chunked paths log the seconds of their
+host merge, whose span "<what>.merge" holds the chunks and the keys in
+and out.
 
 The link formats (reference backend.py:141-200, 694-820): `_slow_link`
 says whether the host-device link is slow (KMERSET_TPU_LINK=fast|slow, or
@@ -386,14 +388,19 @@ def count_plan(what: str, n_windows: int, k: int, device) -> int:
     at k on `device`: all of them in one shot up to the one-shot ceiling
     of the budget read now, else halo chunks of the ceiling.  Logs "W
     windows in C chunk(s) of at most X (ceiling Y, budget B)" at debug
-    level.  The caller runs one shot where the size is n_windows, else
-    the chunked path with chunk_windows set to it."""
-    budget = memory_budget(device)
-    ceiling = window_ceiling(k, budget)
-    chunk = n_windows if n_windows <= ceiling else ceiling
+    level, and the span "<what>.plan" holds the same numbers (windows,
+    chunks, chunk, ceiling, budget).  The caller runs one shot where the
+    size is n_windows, else the chunked path with chunk_windows set to
+    it."""
+    with trace.span(f"{what}.plan") as sp:
+        budget = memory_budget(device)
+        ceiling = window_ceiling(k, budget)
+        chunk = n_windows if n_windows <= ceiling else ceiling
+        chunks = -(-n_windows // max(1, chunk))
+        sp.set(windows=n_windows, chunks=chunks, chunk=chunk, ceiling=ceiling,
+               budget=budget)
     logger.debug("%s: %d windows in %d chunk(s) of at most %d (ceiling %d, "
-                 "budget %d)", what, n_windows, -(-n_windows // max(1, chunk)),
-                 chunk, ceiling, budget)
+                 "budget %d)", what, n_windows, chunks, chunk, ceiling, budget)
     return chunk
 
 
@@ -550,14 +557,21 @@ def _merge_cascade(parts: list, merge_pair):
 
 
 def _merge_logged(what: str, parts: list, merge_pair):
-    """_merge_cascade of the chunks' runs (the span "<what>.merge"), its
+    """_merge_cascade of the chunks' runs (the span "<what>.merge": the
+    chunks, keys_in summed over the runs and keys_out merged), its
     seconds and the merged key count logged at debug level."""
-    with trace.timed(f"{what}.merge", chunks=len(parts)) as s:
+    keys_in = sum(_n_keys(p) for p in parts)
+    with trace.timed(f"{what}.merge", chunks=len(parts), keys_in=keys_in) as s:
         out = _merge_cascade(parts, merge_pair)
+        s.set(keys_out=_n_keys(out))
     logger.debug("%s: merged %d chunk(s) on the host in %.4f s (%d keys)",
-                 what, len(parts), s.seconds,
-                 (out[0] if isinstance(out, tuple) else out).shape[0])
+                 what, len(parts), s.seconds, _n_keys(out))
     return out
+
+
+def _n_keys(run) -> int:
+    """The keys of a (keys, counts) or keys-only sorted run."""
+    return int((run[0] if isinstance(run, tuple) else run).shape[0])
 
 
 def _merge_key_pair(ak: np.ndarray, bk: np.ndarray) -> np.ndarray:

@@ -4,8 +4,10 @@ device_count_chunked and device_unique_chunked (JAX on the CPU, with
 CHUNK_WINDOWS patched small as tests/test_parallel.py does) and against
 the port's one-shot path; the graph front-end in query chunks and in its
 bounded mode (rows downloaded, or kept on the device for the device
-walk) against its one-shot result; and the memory-derived ceilings.  Every comparison is
-exact.
+walk) against its one-shot result; the memory-derived ceilings; and
+kmerset-build of generated reads at k = 19 whose count takes 3 chunks,
+against the benchmark's plain reference and the one-shot build's dump.
+Every comparison is exact.
 """
 
 import logging
@@ -392,3 +394,71 @@ def test_front_end_plan_line_at_a_patched_budget(monkeypatch, caplog):
             f"unitigs: {mode}, query chunk {q} of {n} k-mers (ceiling "
             f"{ceiling}, budget {budget})"]
     assert bounded == [1]
+
+
+# -- kmerset-build above the count's one-shot ceiling ------------------------
+
+_READS_K, _READS_CUTOFF, _READS_GENOME = 19, 2, 60_000
+
+
+@pytest.fixture(scope="module")
+def reads10x_builds(tmp_path_factory):
+    """kmerset-build through main(argv) at k = 19 and cutoff 2 of reads
+    that kmerbench's generator makes from the reads10x mix over a 60 kb
+    genome: once in one shot and once with the budget patched so that
+    the count takes exactly 3 halo chunks.  Returns the FASTA, the two
+    dumps, and the chunks each count ran (chunk_slices' yields)."""
+    from kmerbench import generate, spec
+    from kmerset_tpu_torch.cli import kmerset_build
+
+    d = tmp_path_factory.mktemp("reads10x")
+    mix = spec.load_json(f"{spec.HERE}/mixes/reads10x.json")
+    genome = generate.genomes({"genome_bp": _READS_GENOME}, 23)[0]
+    fasta = str(d / "reads.fa")
+    bases = generate.write_reads(fasta, genome, mix, generate.rng_of(23, 2))
+    windows = bases - _READS_K + 1
+    per = backend.count_bytes_per_window(_READS_K)
+    chunks = []
+    real_slices = backend.chunk_slices
+
+    def spy_slices(*args):
+        chunks.append(len(list(real_slices(*args))))
+        return real_slices(*args)
+
+    dumps = {}
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(backend, "chunk_slices", spy_slices)
+        for name, budget in (("one shot", None),
+                             ("chunked", per * -(-windows // 3))):
+            if budget is not None:
+                mp.setattr(backend, "memory_budget", lambda device: budget)
+            dumps[name] = str(d / f"{name.replace(' ', '_')}.txt")
+            kmerset_build.main([
+                "--device", "cpu", "--k", str(_READS_K), "--cutoff",
+                str(_READS_CUTOFF), "--out", dumps[name], fasta])
+    return fasta, dumps, chunks
+
+
+def test_a_reads10x_build_counts_in_exactly_three_chunks(reads10x_builds):
+    _, _, chunks = reads10x_builds
+    assert chunks == [3]
+
+
+def test_the_chunked_reads10x_dump_is_the_reference_set(reads10x_builds):
+    from kmerbench.reference import kmers as plain
+
+    fasta, dumps, _ = reads10x_builds
+    want, stats = plain.kmer_set(fasta, _READS_K, _READS_CUTOFF, "cpu")
+    got, doubled, malformed, strings = plain.decode_dump(
+        dumps["chunked"], _READS_K, "cpu")
+    assert torch.equal(got, want)
+    assert doubled == malformed == 0 and strings > 0
+    # Errors seen once fall under the cutoff, so it does cut something.
+    assert 0 < stats["kept"] < stats["distinct"]
+
+
+def test_the_chunked_reads10x_dump_equals_the_one_shot_dump(reads10x_builds):
+    _, dumps, _ = reads10x_builds
+    with open(dumps["chunked"], "rb") as a, open(dumps["one shot"], "rb") as b:
+        chunked, one_shot = a.read(), b.read()
+    assert chunked and chunked == one_shot

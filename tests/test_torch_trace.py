@@ -10,7 +10,7 @@ import threading
 import numpy as np
 import pytest
 
-from kmerbench import progtrace
+from kmerbench import progtrace, spec
 from kmerbench import spans as log_spans
 from kmerbench.reference import check
 from kmerbench.window import Job, run_job
@@ -332,3 +332,66 @@ def test_compress_cli_logs_one_trace_line_with_every_layer(fastas, logger):
     ctx = _Ctx("compress", [job])
     assert progtrace.per_job(ctx, "compress", progtrace.multiset_self_seconds) > 0
     assert progtrace.per_job(ctx, "compress", progtrace.file_io_seconds) > 0
+
+
+def _count_build(reads, logger, tmp_path, monkeypatch, chunks):
+    """A traced kmerset-build of `reads` at k = 19 and cutoff 2 whose
+    count takes `chunks` halo chunks (1: one shot, at the CPU's budget;
+    more: the budget patched to that many chunks of the ceiling)."""
+    from kmerset_tpu_torch.cli import kmerset_build
+
+    k = 19
+    if chunks > 1:
+        codes = sum(len(line) for line in open(reads).read().split("\n")
+                    if line and not line.startswith(">"))
+        ceiling = -(-(codes - k + 1) // chunks)
+        monkeypatch.setattr(backend, "memory_budget", lambda device:
+                            ceiling * backend.count_bytes_per_window(k))
+    job = _cli_job(kmerset_build.main, [
+        "--device", "cpu", "--debug", "--k", str(k), "--cutoff", "2",
+        "--out", str(tmp_path / f"out{chunks}.txt"), reads], logger)
+    return job, _line(job.lines)["spans"]
+
+
+def test_a_chunked_build_traces_its_count_plan_and_merge(fastas, logger,
+                                                         tmp_path, monkeypatch):
+    """Above the one-shot ceiling the count's plan span states its 3
+    chunks and the numbers of its debug line, and the host merge states
+    the runs' keys in and the merged keys out."""
+    reads, _, _ = fastas
+    job, spans = _count_build(reads, logger, tmp_path, monkeypatch, 3)
+    plans = [s for s in spans if s["name"] == "count.plan"]
+    assert len(plans) == 1
+    p = plans[0]["attrs"]
+    assert set(p) == {"windows", "chunks", "chunk", "ceiling", "budget"}
+    assert p["chunks"] == 3 and p["chunk"] == p["ceiling"] < p["windows"]
+    assert -(-p["windows"] // p["ceiling"]) == 3
+    assert p["ceiling"] == p["budget"] // backend.count_bytes_per_window(19)
+    line = (f"count: {p['windows']} windows in 3 chunk(s) of at most "
+            f"{p['chunk']} (ceiling {p['ceiling']}, budget {p['budget']})")
+    assert line in [m for _, m in job.lines]
+    merges = [s for s in spans if s["name"] == "count.merge"]
+    assert len(merges) == 1
+    m = merges[0]["attrs"]
+    assert m["chunks"] == 3 and m["keys_in"] >= m["keys_out"] > 0
+    devices = [s for s in spans if s["name"] == "count.device"]
+    assert m["keys_in"] == sum(s["attrs"]["kmers"] for s in devices)
+    assert "front_end.upload" in {s["name"] for s in spans}
+    ctx = _Ctx("build", [job])
+    assert spec.reader("layers", "count_chunks.build")(ctx) == 3.0
+    assert spec.reader("layers", "count_merge_s.build")(ctx) > 0
+
+
+def test_a_one_shot_build_traces_one_chunk_and_no_merge(fastas, logger,
+                                                        tmp_path, monkeypatch):
+    reads, _, _ = fastas
+    job, spans = _count_build(reads, logger, tmp_path, monkeypatch, 1)
+    plans = [s["attrs"] for s in spans if s["name"] == "count.plan"]
+    assert len(plans) == 1
+    assert plans[0]["chunks"] == 1 and plans[0]["chunk"] == plans[0]["windows"]
+    assert plans[0]["ceiling"] >= plans[0]["windows"]
+    assert not [s for s in spans if s["name"] == "count.merge"]
+    assert "front_end.upload" not in {s["name"] for s in spans}
+    ctx = _Ctx("build", [job])
+    assert spec.reader("layers", "count_chunks.build")(ctx) == 1.0
+    assert spec.reader("layers", "count_merge_s.build")(ctx) is None
