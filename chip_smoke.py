@@ -33,8 +33,11 @@ with the device walk against the host walk, byte for byte, at k = 15 and
 23; and (phase 4j) kernel J1, the path cover's candidate overlap edges,
 against its plain version and the host's native join and dedup at the
 same shape, with its peak device bytes a unitig against
-ops/backend.EDGES_BYTES_PER_UNITIG.  Each kernel is timed at the main path's shapes beside
-its bound (the bytes it must move over the card's 3.35 TB/s), its plain
+ops/backend.EDGES_BYTES_PER_UNITIG; and (phase 4p) kernel P1, the
+count's FASTA parse and pack, against its plain version and the host's
+parse on fuzzed texts and at the benchmark's reads, chr1 and dmel FASTA,
+and a build of the reads cell's input byte-identical on both routes.
+Each kernel is timed at the main path's shapes beside its bound (the bytes it must move over the card's 3.35 TB/s), its plain
 version, its wrapper's host time per call and, for B3, the one PyTorch
 call that computes the same function (`lane[keep]` per lane), at the
 five shapes the count and decode launch.  Then it drives the port's
@@ -176,7 +179,7 @@ PACK_OPS_PER_WINDOW = 24
 COMPACT_OPS_PER_ELEMENT = 4
 COMPACT_OPS_PER_LANE_ELEMENT = 12
 # The kernels whose launches the runs count: the tracer's launch.<name>.
-KERNELS = ("B1", "B2", "B3", "W1", "J1")
+KERNELS = ("B1", "B2", "B3", "W1", "J1", "P1")
 # The tracer's counts of the canonical builds' sets walked on the card
 # (kernel W1) and on the host, which the runs count beside the launches.
 WALKS = ("walk.device", "walk.host")
@@ -812,6 +815,187 @@ def check_overlap(torch, rng) -> dict:
             "searches' dependent loads", "library_ms": None,
             "host_ms": join_ms, "wall_ms": statistics.median(wall),
             "route_ms": statistics.median(route)}
+
+
+# The benchmark's cells whose FASTA phase 4p parses: (configuration, mix,
+# k, cutoff) of kmerbench/configs and kmerbench/mixes.
+PARSE_SHAPES = (("ecoli-k15", "reads", 15, 4), ("chr1-k23", "assembly", 23, 1),
+                ("dmel-k19", "reads10x", 19, 2))
+
+
+def _parse_fuzz(rng) -> bytes:
+    """A FASTA text of up to ~240 KB (up to 15 of P1's 16 KB tiles):
+    records of 0-600 bases with N runs, now and then without its last
+    newline, with a header more (an odd line count) or with one byte
+    replaced by a newline, '>', a carriage return, lower case or N."""
+    out = bytearray()
+    for i in range(int(rng.integers(0, 400))):
+        seq = _BASES[rng.integers(0, 4, int(rng.integers(0, 600)))].copy()
+        seq[rng.random(seq.shape[0]) < 0.02] = ord("N")
+        out += b">r%d\n" % i + seq.tobytes() + b"\n"
+    if out and rng.random() < 0.3:
+        out = out[:-1]
+    if rng.random() < 0.1:
+        out += b">odd\n"
+    if out and rng.random() < 0.3:
+        out[int(rng.integers(0, len(out)))] = int(rng.choice(
+            np.frombuffer(b"\n>\raN", np.uint8)))
+    return bytes(out)
+
+
+def _parse_outcome(torch, fn):
+    """(packed codes, offsets, None) on the host of a parse, or (None,
+    None, its message)."""
+    from kmerset_tpu_torch.ops import parse
+
+    try:
+        codes, offsets = fn()
+    except ValueError as e:
+        return None, None, str(e)
+    codes = torch.as_tensor(codes)
+    return (parse.pack_plain(codes.cpu()).numpy(),
+            torch.as_tensor(offsets).cpu().numpy(), None)
+
+
+def check_parse(torch, rng) -> dict:
+    """Kernel P1 (csrc/parse.cu: the FASTA parse and 2-bit pack of the
+    count) on the card: on 400 fuzzed texts against its plain version on
+    the card and the host's native parse and pack (codes, offsets, error
+    messages); at the FASTA of the benchmark's reads, chr1 and dmel cells
+    against its plain version, with its two kernels timed by CUDA events
+    beside the bytes bound (the text read once, the codes and fragment
+    ends written once; the codes read once and packed), the plain
+    version's time, the device route's wall (the pinned read and upload,
+    P1, its download) and the host parse and pack it replaces; then
+    kmerset-build of the reads cell's input on the device route and on the
+    host route: launch.P1 and parse.device once on the first, parse.host
+    once on the second, the dumps byte-identical."""
+    from unittest import mock
+
+    from kmerbench import generate
+    from kmerset_tpu_torch.cli import kmerset_build
+    from kmerset_tpu_torch.core import io as core_io
+    from kmerset_tpu_torch.core import native
+    from kmerset_tpu_torch.ops import backend, parse
+    from kmerset_tpu_torch.utils import trace
+
+    for i in range(400):
+        data = _parse_fuzz(rng)
+        buf = torch.tensor(np.frombuffer(data, np.uint8)).cuda()
+        got = _parse_outcome(torch, lambda: parse.parse(buf))
+        plain = _parse_outcome(torch, lambda: parse.parse_plain(buf))
+        host = _parse_outcome(torch, lambda: native.parse_fasta_bytes(data))
+        for other, what in ((plain, "its plain version"), (host, "the host's")):
+            if got[2] != other[2] or (got[2] is None and not all(
+                    np.array_equal(g, w) for g, w in zip(got[:2], other[:2]))):
+                raise AssertionError(f"P1 fuzz case {i} ({len(data)} B): "
+                                     f"differs from {what} ({got[2]!r}, "
+                                     f"{other[2]!r})")
+    say("4p", "P1 on 400 fuzzed texts: packed codes, offsets and errors equal "
+              "to its plain version's and the host's")
+    lib = parse._lib()[0]
+    stream = torch.cuda.current_stream().cuda_stream
+    row = None
+    for config, mix, k, cutoff in PARSE_SHAPES:
+        work = os.path.join(WORK, f"parse_{config}.{mix}")
+        os.makedirs(work, exist_ok=True)
+
+        def load(name):
+            with open(os.path.join(ROOT, "kmerbench", name)) as f:
+                return json.load(f)
+
+        (fasta,), _ = generate.write_fastas(load(f"configs/{config}.json"),
+                                            load(f"mixes/{mix}.json"), SEED, work)
+        buf = backend.upload_file(fasta, "cuda")
+        n = buf.shape[0]
+        codes, offsets = parse.parse(buf)
+        t0 = time.perf_counter()
+        plain = parse.parse_plain(buf)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        _same_as_plain(torch, f"P1 parse {config}.{mix}", (codes, offsets), plain)
+        del plain
+        packed = parse.pack(codes)
+        odd = codes[12_345:]
+        _same_as_plain(torch, f"P1 pack {config}.{mix}",
+                       (packed, parse.pack(odd)),
+                       (parse.pack_plain(codes), parse.pack_plain(odd)))
+        total, n_frag = codes.shape[0], offsets.shape[0] - 1
+        tiles = -(-n // parse.TILE)
+        out = torch.empty(n, dtype=torch.uint8, device="cuda")
+        ends = torch.empty(1 + (n + 1) // 2, dtype=torch.int64, device="cuda")
+        scratch = torch.empty(1 + 3 * tiles, dtype=torch.int64, device="cuda")
+        info = torch.empty(4, dtype=torch.int64, device="cuda")
+        parse_ms = time_ms(lambda: lib.kmerset_parse_fasta(
+            buf.data_ptr(), n, out.data_ptr(), ends.data_ptr(),
+            scratch.data_ptr(), scratch.shape[0], info.data_ptr(), stream), 5, 3)
+        pack_ms = time_ms(lambda: lib.kmerset_pack_codes(
+            codes.data_ptr(), total, packed.data_ptr(), stream), 5, 3)
+        if not (torch.equal(out[:total], codes)
+                and torch.equal(ends[: n_frag + 1], offsets)):
+            raise AssertionError(f"P1 {config}.{mix}: the timed parse differs")
+        del buf, out, ends, scratch, info, codes, offsets, packed, odd
+        route = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            parse.parse(backend.upload_file(fasta, "cuda"))
+            torch.cuda.synchronize()
+            route.append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        host = native.parse_fasta_bytes(core_io.read_file_bytes(fasta))
+        native.pack2(host[0])
+        host_ms = (time.perf_counter() - t0) * 1e3
+        del host
+        parse_bytes = n + total + 8 * (n_frag + 1)
+        pack_bytes = total + (total + 3) // 4
+        bound = bound_ms(parse_bytes + pack_bytes, 0)[0]
+        say("4p", f"P1 {config}.{mix}: {n} B, {total} codes, {n_frag} fragments; "
+                  f"equal to its plain version; device ms: parse {parse_ms:.4f} "
+                  f"(bound {bound_ms(parse_bytes, 0)[0]:.4f}), pack {pack_ms:.4f} "
+                  f"(bound {bound_ms(pack_bytes, 0)[0]:.4f}), sum "
+                  f"{parse_ms + pack_ms:.4f} against {bound:.4f} "
+                  f"({100 * bound / (parse_ms + pack_ms):.1f}% of the bytes "
+                  f"bound); plain {plain_ms:.1f} ms; route wall (read, upload, "
+                  f"P1, totals) median {statistics.median(route):.1f} ms; host "
+                  f"read, parse and pack {host_ms:.1f} ms")
+        row = {"name": "P1 parse: parse.parse, parse.pack", "route": "cuda",
+               "source": "kmerset_tpu_torch/csrc/parse.cu",
+               "replaces": "native/kmerio.c kmerio_parse_fasta, kmerio_pack2 "
+                           "(no Pallas kernel)",
+               "max_abs_err": 0, "ms": parse_ms + pack_ms, "plain_ms": plain_ms,
+               "bound_ms": bound, "bound_by": "bytes", "library_ms": None,
+               "host_ms": host_ms, "route_ms": statistics.median(route),
+               "shape": f"{config}.{mix}"}
+        if config != "ecoli-k15":
+            continue
+
+        def build(name: str) -> Tuple[bytes, dict]:
+            out_path = os.path.join(work, name)
+            before = dict(trace.counts())
+            kmerset_build.main(["--device", "cuda", "--k", str(k), "--cutoff",
+                                str(cutoff), "--out", out_path, fasta])
+            moved = {c: trace.counts().get(c, 0) - before.get(c, 0)
+                     for c in ("launch.P1", "launch.P1.pack", "parse.device",
+                               "parse.host")}
+            with open(out_path, "rb") as f:
+                return f.read(), moved
+
+        got, moved = build("device.txt")
+        if moved != {"launch.P1": 1, "launch.P1.pack": 1, "parse.device": 1,
+                     "parse.host": 0}:
+            raise AssertionError(f"P1 build {config}.{mix}: device route {moved}")
+        with mock.patch.object(backend, "parse_route", lambda *a: False):
+            want, moved = build("host.txt")
+        if moved != {"launch.P1": 0, "launch.P1.pack": 0, "parse.device": 0,
+                     "parse.host": 1}:
+            raise AssertionError(f"P1 build {config}.{mix}: host route {moved}")
+        if got != want:
+            raise AssertionError(f"P1 build {config}.{mix}: the dumps differ")
+        say("4p", f"kmerset-build {config}.{mix} --k {k} --cutoff {cutoff}: the "
+                  f"device route's dump ({len(got)} B) byte-identical to the "
+                  "host route's; launch.P1 1, parse.device 1 on the first")
+    return row
 
 
 def _same_as_plain(torch, what: str, got, want) -> None:
@@ -3039,6 +3223,7 @@ def main() -> int:
     # Its own generator: the later phases' inputs do not depend on it.
     kernels.append(check_walk(torch, np.random.default_rng(SEED + 4)))
     kernels.append(check_overlap(torch, np.random.default_rng(SEED + 5)))
+    kernels.append(check_parse(torch, np.random.default_rng(SEED + 6)))
 
     fasta_a = os.path.join(WORK, "genome.fa")
     write_genome_fasta(fasta_a, rng, 1 << 24)

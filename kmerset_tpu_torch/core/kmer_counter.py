@@ -6,8 +6,12 @@ saturating counts, the incremental adds (add, _flush, size, get,
 :280-313) and the cutoff filter of to_kmer_set (:315-343), which flushes
 pending adds first; and its copy of extract_kmers (:27-54), the host
 window extraction of the library surface (PackedStrings.all_kmers, the
-test-data generators).  Its construction sends every non-empty input to
-a mesh of shards where one is given and its gate takes the input
+test-data generators).  from_fasta parses a plain file on a CUDA device
+with no mesh on the device (backend.parse_route: kernel P1,
+ops/parse.py), so that the codes and offsets the count takes never reach
+the host; every other input the host parses.  Its construction sends
+every non-empty input to a mesh of shards where one is given and its
+gate takes the input
 (parallel/driver.mesh_count, the reference's route at :194-200), else to
 the port's device count on the counter's device: in one shot
 (ops/backend.device_count) up to the device's one-shot ceiling
@@ -77,6 +81,28 @@ def extract_kmers(
     return kmers
 
 
+def _parse_on_device(file_name: str, device, sp):
+    """(codes, offsets) of the FASTA file on `device`, parsed there:
+    backend.upload_file, then kernel P1 (ops/parse.parse), under the
+    device's lock.  Raises core.io.IOError_ as the host route does.  The
+    file's bytes are freed on return, before the count plans its
+    budget."""
+    from ..ops import parse
+
+    with backend.device_lock(device):
+        try:
+            data = backend.upload_file(file_name, device)
+        except OSError as e:
+            raise core_io.IOError_(f"failed to open file: {file_name}") from e
+        sp.set(bytes=int(data.shape[0]))
+        try:
+            codes, offsets = parse.parse(data)
+        except ValueError as e:
+            raise core_io.IOError_(str(e)) from e
+    trace.add("parse.device")
+    return codes, offsets
+
+
 class KmerCounter:
     """Sorted distinct k-mers with saturating counts, counted on a
     device."""
@@ -106,13 +132,21 @@ class KmerCounter:
         """FASTA file (optionally piped through `decompressor`) -> counter.
         Raises core.io.IOError_ on unreadable or malformed input.  The
         span "count.construct", and in it "count.parse" (the read and the
-        parse), then the count's own."""
+        parse), then the count's own.  Where backend.parse_route takes the
+        file (CUDA, no mesh, no decompressor), its bytes go to the device
+        and kernel P1 parses them there (_parse_on_device): the codes and
+        offsets stay on the device, and the count packs them there; else
+        the host parses them.  Counters parse.device and parse.host count
+        the parses by route."""
         with trace.span("count.construct"):
             with trace.span("count.parse", file=file_name) as sp:
-                if native.get_lib() is None:
+                if backend.parse_route(file_name, decompressor, device, mesh):
+                    codes, offsets = _parse_on_device(file_name, device, sp)
+                elif native.get_lib() is None:
                     reads = core_io.parse_fasta_lines(
                         core_io.read_lines(file_name, decompressor))
                     codes, offsets = core_io.reads_to_codes(reads)
+                    trace.add("parse.host")
                 else:
                     data = core_io.read_file_bytes(file_name, decompressor)
                     sp.set(bytes=len(data))
@@ -121,6 +155,7 @@ class KmerCounter:
                     except ValueError as e:
                         raise core_io.IOError_(str(e)) from e
                     del data
+                    trace.add("parse.host")
                 sp.set(codes=int(codes.shape[0]))
             return cls._from_codes(k, codes, offsets, canonical, value_max,
                                    device=device, mesh=mesh)
@@ -145,7 +180,7 @@ class KmerCounter:
 
     @classmethod
     def _from_codes(
-        cls, k: int, codes: np.ndarray, offsets: np.ndarray, canonical: bool,
+        cls, k: int, codes, offsets, canonical: bool,
         value_max: int = DEFAULT_VALUE_MAX, *, device, mesh=None,
     ) -> "KmerCounter":
         device = resolve_device(device)

@@ -156,6 +156,10 @@ SIGNATURES = {
     # P, S, n, k, p_keys, p_ord, s_keys, s_ord, ends, m, out, stream
     "kmerset_overlap_fill": ([_P, _P, _I64, _I32] + [_P] * 5 + [_I64, _P, _P],
                              _I32),
+    # buf, n, codes, ends, scratch, scratch_words, info, stream
+    "kmerset_parse_fasta": ([_P, _I64, _P, _P, _P, _I64, _P, _P], _I32),
+    # codes, L, out, stream
+    "kmerset_pack_codes": ([_P, _I64, _P, _P], _I32),
     "kmerset_error_string": ([_I32], ctypes.c_char_p),
 }
 

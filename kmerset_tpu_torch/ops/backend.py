@@ -8,7 +8,10 @@ reference's host state is the (codes uint8, offsets int64) pair that the
 native FASTA parser (core/native.parse_fasta_bytes) and
 core/io.reads_to_codes produce; `stage` turns it into the tensors that
 ops/count.py takes, and the fetches turn the device outputs back into the
-reference's numpy layout.
+reference's numpy layout.  The same pair can come from the FASTA parse on
+the device (parse_route, upload_file, then kernel P1 of ops/parse.py) as
+tensors there: `stage` then packs it there, and the chunked paths cut its
+chunks there (device_chunk_slices).
 
 The one-shot ceiling is a function of the key width and the memory the
 device has left (window_ceiling, memory_budget), not the reference's
@@ -46,8 +49,11 @@ the TPU sort).
 
 from __future__ import annotations
 
+import collections
+import concurrent.futures
 import logging
 import os
+import stat
 import threading
 import time
 from typing import Iterator, NamedTuple, Optional, Tuple
@@ -124,6 +130,18 @@ EDGES_MIN_UNITIGS = 1 << 11
 # sorts' scratch; 144.01 measured on one H100 at the assembly cell's
 # shape (chip_smoke.py phase 4j, PERF.md section 6), rounded up.
 EDGES_BYTES_PER_UNITIG = 192
+
+# The device parse's FASTA read (upload_file): pieces of this many bytes,
+# read by this many threads into a ring of this many pinned host buffers.
+# With the uploads, P1 and its download, one thread took 358 ms over the
+# dmel cell's 1.56 GB on the card's host, four 131 ms (PERF.md section 6).
+READ_PIECE_BYTES = 8 << 20
+READ_THREADS = 4
+READ_RING = 8
+# Peak device bytes per FASTA byte of the device parse (ops/parse.parse):
+# the bytes (1), the codes (1) and the room for the fragment ends (8 B for
+# at most every other byte).
+PARSE_BYTES_PER_BYTE = 6
 
 # Keys from which device_count downloads its keys gap-encoded on a slow
 # link (reference backend.py:691).
@@ -305,17 +323,89 @@ class Staged(NamedTuple):
     L: int  # codes in `packed` (== total: no padding)
 
 
-def upload(what: str, array, device, dtype=None) -> torch.Tensor:
+def upload(what: str, array, device, dtype=None, out=None) -> torch.Tensor:
     """The host array (numpy or a CPU tensor) on `device`, in `dtype` if
     given: every host-to-device copy of the main path goes through here,
     a span "copy.h2d" with its `what` and bytes, counted in h2d_bytes and
-    h2d_copies (on the CPU device too, where no copy crosses a link)."""
+    h2d_copies (on the CPU device too, where no copy crosses a link).
+    With `out` (a tensor on `device` of the array's size) the copy goes
+    there, queued without a wait (a pinned source copies while the host
+    runs on: the span then times the queueing), and `out` is returned."""
     t = torch.from_numpy(array) if isinstance(array, np.ndarray) else array
     nbytes = t.numel() * t.element_size()
     with trace.span("copy.h2d", what=what, bytes=nbytes):
         trace.add("h2d_bytes", nbytes)
         trace.add("h2d_copies")
+        if out is not None:
+            return out.copy_(t, non_blocking=True)
         return t.to(device, dtype)
+
+
+def upload_file(file_name: str, device) -> torch.Tensor:
+    """The bytes of the file `file_name` on `device` (uint8): read in
+    pieces of READ_PIECE_BYTES by READ_THREADS threads (os.preadv) into a
+    ring of READ_RING host buffers (pinned on CUDA), each piece's upload
+    queued through `upload`, in order, as soon as it is read, so that the
+    link overlaps the reads; a buffer is read into again once its last
+    upload is done.  Raises OSError where the file cannot be read whole."""
+    dev = canonical_device(device)
+    cuda = dev.type == "cuda"
+    with open(file_name, "rb") as f, \
+            concurrent.futures.ThreadPoolExecutor(READ_THREADS) as pool:
+        fd = f.fileno()
+        size = os.fstat(fd).st_size
+        out = torch.empty(size, dtype=torch.uint8, device=dev)
+        piece = max(1, min(READ_PIECE_BYTES, size))
+        starts = range(0, size, piece)
+        ring = [torch.empty(piece, dtype=torch.uint8, pin_memory=cuda)
+                for _ in range(min(READ_RING, len(starts)))]
+        done = [None] * len(ring)
+
+        def read(buf: torch.Tensor, at: int) -> None:
+            view, got = memoryview(buf.numpy()), 0
+            while got < len(view):
+                n = os.preadv(fd, [view[got:]], at + got)
+                if not n:
+                    raise OSError(f"{file_name}: read {at + got} of {size} bytes")
+                got += n
+
+        def queue(slot: int, at: int, buf: torch.Tensor, reading) -> None:
+            reading.result()
+            upload("fasta bytes", buf, dev, out=out[at : at + buf.shape[0]])
+            if cuda:
+                done[slot] = torch.cuda.Event()
+                done[slot].record(torch.cuda.current_stream(dev))
+
+        pending = collections.deque()
+        for i, at in enumerate(starts):
+            if len(pending) == len(ring):
+                queue(*pending.popleft())
+            slot = i % len(ring)
+            if done[slot] is not None:
+                done[slot].synchronize()
+            buf = ring[slot][: min(piece, size - at)]
+            pending.append((slot, at, buf, pool.submit(read, buf, at)))
+        while pending:
+            queue(*pending.popleft())
+        if os.pread(fd, 1, size):
+            raise OSError(f"{file_name}: grew past {size} bytes while read")
+    return out
+
+
+def parse_route(file_name: str, decompressor: str, device, mesh) -> bool:
+    """Whether a count's FASTA parse runs on `device` (kernel P1,
+    ops/parse.py, on the bytes of upload_file): on CUDA with no mesh, for
+    a regular file read as it is (no decompressor) whose parse fits the
+    memory budget (PARSE_BYTES_PER_BYTE).  Else the host parses it, and
+    raises its own errors."""
+    if mesh is not None or decompressor or resolve_device(device).type != "cuda":
+        return False
+    try:
+        st = os.stat(file_name)
+    except OSError:
+        return False
+    return (stat.S_ISREG(st.st_mode)
+            and st.st_size * PARSE_BYTES_PER_BYTE <= memory_budget(device))
 
 
 def download(what: str, t: torch.Tensor, logged: bool = False) -> np.ndarray:
@@ -339,11 +429,15 @@ def download(what: str, t: torch.Tensor, logged: bool = False) -> np.ndarray:
 
 
 def stage(
-    codes: np.ndarray, offsets: np.ndarray, k: int, device, what: str = "count"
+    codes, offsets, k: int, device, what: str = "count"
 ) -> Optional[Staged]:
-    """Packs the codes 2 bits each on the host and uploads them and the
-    int32 fragment bounds to `device`: the span "<what>.stage".  Returns
-    None for inputs that hold no window."""
+    """Packs the codes 2 bits each and puts them and the int32 fragment
+    bounds on `device`: the span "<what>.stage".  Host arrays (numpy) are
+    packed on the host (native.pack2) and uploaded; a stream the device
+    parse left there (tensors: ops/parse.parse, or a chunk of it) is
+    packed on its device by P1's pack pass (ops/parse.pack), waited for,
+    so that the span times it.  Returns None for inputs that hold no
+    window."""
     total = int(codes.shape[0])
     if total < k:
         return None
@@ -354,6 +448,12 @@ def stage(
             "chunks (device_count_chunked)"
         )
     with trace.span(f"{what}.stage", codes=total):
+        if isinstance(codes, torch.Tensor):
+            from . import parse  # parse imports this module
+
+            packed = parse.pack(codes)
+            sync(packed.device)
+            return Staged(packed, offsets[1:].to(torch.int32), total, total)
         packed = native.pack2(np.ascontiguousarray(codes, dtype=np.uint8))
         bounds = np.asarray(offsets, dtype=np.int64)[1:].astype(np.int32)
         return Staged(
@@ -405,7 +505,7 @@ def count_plan(what: str, n_windows: int, k: int, device) -> int:
 
 
 def device_count(
-    codes: np.ndarray, offsets: np.ndarray, k: int, canonical: bool, *,
+    codes, offsets, k: int, canonical: bool, *,
     device, value_max: int = 0, resident: bool = False,
 ) -> Tuple:
     """Sorted distinct (canonical) k-mers of the fragment stream and their
@@ -421,8 +521,9 @@ def device_count(
     where the format takes them, else in their device dtype: int32 for
     k <= 15, int64 above), then the counts; last the handle's endpoints
     are stamped.
-    The span "count.stage" covers the pack and upload, "count.device"
-    the launches to the counts' fetch."""
+    The span "count.stage" covers the pack (and the upload of host
+    arrays: `stage` takes either form), "count.device" the launches to
+    the counts' fetch."""
     with device_lock(device):
         staged = stage(codes, offsets, k, device)
         if staged is None:
@@ -490,14 +591,43 @@ def chunk_slices(
         lo = hi
 
 
+def device_chunk_slices(
+    codes: torch.Tensor, offsets: torch.Tensor, k: int, chunk_windows: int
+) -> Iterator[Tuple[torch.Tensor, torch.Tensor]]:
+    """chunk_slices of a stream on the device (ops/parse.parse's codes
+    and offsets): the same chunks, halos and offsets, as views and
+    tensors on its device.  Every chunk's fragment offsets are searched
+    on the device at once, and their indices come down in one download.
+    chunk_slices' np.unique changes nothing there: offsets rise strictly
+    (each fragment holds a code), so those inside a chunk lie strictly
+    between its 0 and its end."""
+    if chunk_windows < 1:
+        raise ValueError(f"chunk_windows must be >= 1, got {chunk_windows}")
+    n_windows = codes.shape[0] - (k - 1)
+    if n_windows <= 0:
+        return
+    los = np.arange(0, n_windows, chunk_windows, dtype=np.int64)
+    his = np.minimum(los + chunk_windows, n_windows) + (k - 1)
+    cuts = upload("chunk bounds", np.concatenate([los, his]), offsets.device)
+    a = torch.searchsorted(offsets, cuts[: los.shape[0]], right=True)
+    b = torch.searchsorted(offsets, cuts[los.shape[0]:])
+    ab = download("chunk fragment bounds", torch.stack([a, b]))
+    for lo, hi_code, i, j in zip(los.tolist(), his.tolist(), *ab.tolist()):
+        yield codes[lo:hi_code], torch.cat([
+            offsets.new_zeros(1), offsets[i:j] - lo,
+            offsets.new_full((1,), hi_code - lo)])
+
+
 def _chunks(codes, offsets, k: int, device, chunk_windows: Optional[int]):
     if chunk_windows is None:
         chunk_windows = window_ceiling(k, memory_budget(device))
-    return chunk_slices(codes, offsets, k, min(chunk_windows, MAX_WINDOWS))
+    slices = (device_chunk_slices if isinstance(codes, torch.Tensor)
+              else chunk_slices)
+    return slices(codes, offsets, k, min(chunk_windows, MAX_WINDOWS))
 
 
 def device_count_chunked(
-    codes: np.ndarray, offsets: np.ndarray, k: int, canonical: bool, *,
+    codes, offsets, k: int, canonical: bool, *,
     device, chunk_windows: Optional[int] = None,
 ) -> Tuple[np.ndarray, np.ndarray]:
     """Out-of-core count on one device: every halo chunk of at most
