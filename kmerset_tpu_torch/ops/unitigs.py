@@ -39,13 +39,21 @@ from .neighbors import side_tables
 logger = logging.getLogger("kmerset")
 
 
+def _tables(A: torch.Tensor, k: int, canonical: bool = True, lo: int = 0,
+            hi: Optional[int] = None, with_base: bool = False):
+    """side_tables of A[lo:hi], counted in front_end.query_chunks: every
+    side-table build of the front-end goes through here."""
+    trace.add("front_end.query_chunks")
+    return side_tables(A, k, canonical, lo, hi, with_base=with_base)
+
+
 def _chunked_side_tables(A: torch.Tensor, k: int, query_chunk: int):
     """side_tables of all of A, built over ranges A[lo:lo + query_chunk]
     each joined against the whole of A, into whole per-k-mer arrays
     (~26 B per k-mer)."""
     n = A.shape[0]
     if query_chunk >= n:
-        return side_tables(A, k, True)
+        return _tables(A, k)
     out = []
     for _ in range(2):
         out.append((torch.empty(n, dtype=torch.int32, device=A.device),
@@ -53,7 +61,7 @@ def _chunked_side_tables(A: torch.Tensor, k: int, query_chunk: int):
                     torch.empty(n, dtype=torch.bool, device=A.device)))
     for lo in range(0, n, query_chunk):
         hi = min(lo + query_chunk, n)
-        for whole, part in zip(out, side_tables(A, k, True, lo, hi)):
+        for whole, part in zip(out, _tables(A, k, True, lo, hi)):
             for w, p in zip(whole, part):
                 w[lo:hi] = p
     return out[0], out[1]
@@ -111,18 +119,24 @@ def bounded_unitig_succ(A: torch.Tensor, k: int, query_chunk: int,
     """unitig_succ of A as host arrays, with only A and the two sides'
     degrees (uint8, at most 4) on the device for the whole set: ~10 bytes
     per k-mer beside one query chunk, where unitig_succ keeps ~80.  One
-    pass over the query chunks takes the degrees; a second builds each
+    pass over the query chunks takes the degrees (span
+    "front_end.degrees"); a second (span "front_end.rows") builds each
     chunk's side tables again, takes its terminal tests and successor
     rows with the whole set's degrees, and downloads them (spans
     "front_end.download").  With `keep` (the device walk's plan) the rows
     are written into whole-set tensors on A's device instead (~29 bytes
-    per k-mer with A and the degrees), and nothing is downloaded.
-    Returns ((succ, term_l, term_r, both), seconds spent downloading).
-    device_unitig_succ takes it above backend.front_end_ceiling."""
+    per k-mer with A and the degrees), and nothing is downloaded.  Both
+    pass spans carry `chunks` (the query chunks of a pass) and end on a
+    sync, so that they time the device's work.  Returns ((succ, term_l,
+    term_r, both), seconds spent downloading).  device_unitig_succ takes
+    it above backend.front_end_ceiling."""
     if query_chunk < 1:
         raise ValueError(f"query_chunk must be >= 1, got {query_chunk}")
     n = A.shape[0]
-    rdeg, ldeg = _degrees(A, k, query_chunk)
+    chunks = -(-n // query_chunk)
+    with trace.span("front_end.degrees", chunks=chunks):
+        rdeg, ldeg = _degrees(A, k, query_chunk)
+        backend.sync(A.device)
     if keep:
         succ = torch.empty(2 * n, dtype=torch.int64, device=A.device)
         term_l = torch.empty(n, dtype=torch.bool, device=A.device)
@@ -132,20 +146,24 @@ def bounded_unitig_succ(A: torch.Tensor, k: int, query_chunk: int,
         term_l = np.empty(n, dtype=bool)
         term_r = np.empty(n, dtype=bool)
     download_s = 0.0
-    for lo in range(0, n, query_chunk):
-        hi = min(lo + query_chunk, n)
-        rows = _exits(side_tables(A, k, True, lo, hi), rdeg, ldeg)
-        whole = (succ[2 * lo : 2 * hi], term_l[lo:hi], term_r[lo:hi])
-        if keep:
-            for w, part in zip(whole, rows):
-                w.copy_(part)
-            continue
+    with trace.span("front_end.rows", chunks=chunks):
+        for lo in range(0, n, query_chunk):
+            hi = min(lo + query_chunk, n)
+            rows = _exits(_tables(A, k, True, lo, hi), rdeg, ldeg)
+            whole = (succ[2 * lo : 2 * hi], term_l[lo:hi], term_r[lo:hi])
+            if keep:
+                for w, part in zip(whole, rows):
+                    w.copy_(part)
+                continue
+            backend.sync(A.device)
+            with trace.timed("front_end.download") as sp:
+                for host, part, what in zip(whole, rows,
+                                            ("succ", "term_l", "term_r")):
+                    host[:] = backend.download(what, part)
+            download_s += sp.seconds
+        both = term_l & term_r
         backend.sync(A.device)
-        with trace.timed("front_end.download") as sp:
-            for host, part, what in zip(whole, rows, ("succ", "term_l", "term_r")):
-                host[:] = backend.download(what, part)
-        download_s += sp.seconds
-    return (succ, term_l, term_r, term_l & term_r), download_s
+    return (succ, term_l, term_r, both), download_s
 
 
 def _degrees(A: torch.Tensor, k: int, query_chunk: int):
@@ -156,7 +174,7 @@ def _degrees(A: torch.Tensor, k: int, query_chunk: int):
     ldeg = torch.empty_like(rdeg)
     for lo in range(0, n, query_chunk):
         hi = min(lo + query_chunk, n)
-        (rd, _, _), (ld, _, _) = side_tables(A, k, True, lo, hi)
+        (rd, _, _), (ld, _, _) = _tables(A, k, True, lo, hi)
         rdeg[lo:hi] = rd
         ldeg[lo:hi] = ld
     return rdeg, ldeg
@@ -189,13 +207,13 @@ def dispatch_sides(arr: torch.Tensor, k: int, query_chunk: Optional[int] = None)
     if query_chunk < 1:
         raise ValueError(f"query_chunk must be >= 1, got {query_chunk}")
     if query_chunk >= n:
-        rows = side_tables(arr, k, True, with_base=True)
+        rows = _tables(arr, k, with_base=True)
         return _side_codes(rows, rows[0][0], rows[1][0])
     rdeg, ldeg = _degrees(arr, k, query_chunk)
     out = torch.empty(n, dtype=torch.uint8, device=arr.device)
     for lo in range(0, n, query_chunk):
         hi = min(lo + query_chunk, n)
-        out[lo:hi] = _side_codes(side_tables(arr, k, True, lo, hi, with_base=True),
+        out[lo:hi] = _side_codes(_tables(arr, k, True, lo, hi, with_base=True),
                                  rdeg, ldeg)
     return out
 
@@ -261,12 +279,16 @@ def device_unitig_succ(
     the device walk (backend.walk_route): in either mode nothing is
     downloaded, and the four arrays come back as tensors on the device,
     with the set's tensor fifth (ops/walk.py's input).  The span
-    "front_end.plan" holds the plan (kmers, ceiling, budget, mode, walk);
-    the counter front_end.bounded counts the bounded calls, and
-    walk.bounded those with `keep`, whose sets W1 walks.  Logs the plan (mode,
-    query chunk, ceiling and budget), then the upload, device and
-    download times and bytes, the chunk count and the mode at debug
-    level."""
+    "front_end.plan" holds the plan (kmers, ceiling, budget, mode, walk,
+    query_chunk: k-mers a query chunk, query_chunks: chunks a pass, 1 in
+    one shot unless its query chunk is smaller than the set); in the
+    bounded mode the spans "front_end.degrees" and "front_end.rows" time
+    its two passes (bounded_unitig_succ).  The counter front_end.bounded
+    counts the bounded calls, walk.bounded those with `keep`, whose sets
+    W1 walks, and front_end.query_chunks the side-table builds of every
+    pass (2 * query_chunks bounded).  Logs the plan (mode, query chunk,
+    ceiling and budget), then the upload, device and download times and
+    bytes, the chunk count and the mode at debug level."""
     n = int(A.shape[0])
     dev = resolve_device(device)
     with backend.device_lock(dev):
@@ -274,11 +296,12 @@ def device_unitig_succ(
             budget = backend.memory_budget(dev)
             ceiling = backend.front_end_ceiling(budget)
             bounded, planned = backend.front_end_plan(n, budget, keep)
+            if query_chunk is None:
+                query_chunk = planned
             sp.set(kmers=n, ceiling=ceiling, budget=budget,
                    mode="bounded" if bounded else "one-shot",
-                   walk="device" if keep else "host")
-        if query_chunk is None:
-            query_chunk = planned
+                   walk="device" if keep else "host", query_chunk=query_chunk,
+                   query_chunks=-(-n // max(1, query_chunk)))
         logger.debug("unitigs: %s, query chunk %d of %d k-mers (ceiling %d, "
                      "budget %d)", "bounded" if bounded else "one-shot",
                      query_chunk, n, ceiling, budget)
@@ -289,7 +312,6 @@ def device_unitig_succ(
                 trace.add("walk.bounded")
             with trace.timed("front_end.device", bounded=True) as dv:
                 out, download_s = bounded_unitig_succ(At, k, query_chunk, keep)
-                backend.sync(dev)
             device_s = dv.seconds - download_s
             # `both` is made on the host where the rows are downloaded.
             down_b = 0 if keep else sum(x.nbytes for x in out[:3])
@@ -341,7 +363,7 @@ def device_side_tables_directed(
         with trace.timed("front_end.device", directed=True) as dv:
             for lo in range(0, n, query_chunk):
                 hi = min(lo + query_chunk, n)
-                rows = side_tables(At, k, False, lo, hi)
+                rows = _tables(At, k, False, lo, hi)
                 backend.sync(dev)
                 with trace.timed("front_end.download") as dl:
                     for host, (deg, nbr, _), side in zip(out, rows, ("out", "in")):

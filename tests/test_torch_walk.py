@@ -345,9 +345,11 @@ def test_a_set_above_the_front_end_ceiling_walks_on_the_device(
     _equal(got, want)
     _equal(got, ref_spss.get_unitigs_canonical(RefKmerSet(k, ks.kmers, _sorted=True)))
     plans = [s for s in line["spans"] if s["name"] == "front_end.plan"]
+    q = backend.front_end_plan(n, budget, keep=True)[1]
     assert [p["attrs"] for p in plans] == [{
         "kmers": n, "ceiling": backend.front_end_ceiling(budget),
-        "budget": budget, "mode": "bounded", "walk": "device"}]
+        "budget": budget, "mode": "bounded", "walk": "device",
+        "query_chunk": q, "query_chunks": -(-n // q)}]
     assert line["counters"]["front_end.bounded"] == 1
     assert line["counters"]["walk.bounded"] == 1
     assert line["counters"]["walk.device"] == 1
@@ -358,9 +360,11 @@ def test_a_set_above_the_front_end_ceiling_walks_on_the_device(
 @pytest.mark.parametrize("mode", ["one-shot", "bounded"])
 def test_the_plan_span_and_counters_of_each_route(monkeypatch, trace_lines,
                                                   mode, walk):
-    """One front_end.plan span per front-end call, with its mode and walk;
-    front_end.bounded counts the bounded calls and walk.bounded the sets
-    W1 walked from them, nothing else."""
+    """One front_end.plan span per front-end call, with its mode, walk and
+    query chunks; front_end.bounded counts the bounded calls and
+    walk.bounded the sets W1 walked from them, nothing else; the bounded
+    mode's two passes have a span each, and front_end.query_chunks counts
+    the side-table builds of every pass."""
     ks = KmerSet(15, _kmer_set(15, seed=41), _sorted=True)
     n = ks.size()
     if walk == "device":
@@ -373,12 +377,20 @@ def test_the_plan_span_and_counters_of_each_route(monkeypatch, trace_lines,
     _, line = _traced(trace_lines,
                       lambda: spss.get_unitigs_canonical(ks, device="cpu"))
     plans = [s["attrs"] for s in line["spans"] if s["name"] == "front_end.plan"]
+    q = backend.front_end_plan(n, budget, keep=walk == "device")[1]
     assert plans == [{"kmers": n, "ceiling": backend.front_end_ceiling(budget),
-                      "budget": budget, "mode": mode, "walk": walk}]
+                      "budget": budget, "mode": mode, "walk": walk,
+                      "query_chunk": q, "query_chunks": -(-n // q)}]
     c = line["counters"]
     assert c.get("front_end.bounded", 0) == (mode == "bounded")
     assert c.get("walk.bounded", 0) == (mode == "bounded" and walk == "device")
     assert c.get(f"walk.{walk}", 0) == 1
+    passes = 2 if mode == "bounded" else 1
+    assert c["front_end.query_chunks"] == passes * plans[0]["query_chunks"]
+    for name in ("front_end.degrees", "front_end.rows"):
+        got = [s["attrs"] for s in line["spans"] if s["name"] == name]
+        assert got == ([{"chunks": plans[0]["query_chunks"]}]
+                       if mode == "bounded" else []), name
 
 
 def test_a_mesh_keeps_the_host_walk(monkeypatch):
