@@ -135,9 +135,21 @@ EDGES_BYTES_PER_UNITIG = 192
 # read by this many threads into a ring of this many pinned host buffers.
 # With the uploads, P1 and its download, one thread took 358 ms over the
 # dmel cell's 1.56 GB on the card's host, four 131 ms (PERF.md section 6).
+# The staged download (copy_staged) takes the same pieces, ring and
+# threads: 2 GiB of int64 came down at 7.1-10.7 GB/s into the pool's
+# recycled pages and at 4.1 into fresh ones (faulted in on four threads),
+# against 1.8-2.3 GB/s through t.cpu() into fresh pages and, through one
+# copy_, 2.5 into fresh pages and 5.1-8.7 into recycled ones; the pinned
+# DMA alone ran at 51.4-55.1 (one H100,
+# kmerset_tpu_torch/tools/time_download.py, PERF.md section 6).
 READ_PIECE_BYTES = 8 << 20
 READ_THREADS = 4
 READ_RING = 8
+# Bytes from which download() brings a CUDA tensor down through the ring
+# into an array of np.empty (copy_staged) instead of t.cpu(), whose
+# destination above glibc's 32 MiB mmap ceiling is fresh pages faulted in
+# inside the copy.
+STAGED_MIN_BYTES = 32 << 20
 # Peak device bytes per FASTA byte of the device parse (ops/parse.parse):
 # the bytes (1), the codes (1) and the room for the fragment ends (8 B for
 # at most every other byte).
@@ -408,20 +420,87 @@ def parse_route(file_name: str, decompressor: str, device, mesh) -> bool:
             and st.st_size * PARSE_BYTES_PER_BYTE <= memory_budget(device))
 
 
+def staged_route(t: torch.Tensor) -> bool:
+    """Whether download() copies `t` through the pinned ring (copy_staged):
+    a contiguous CUDA tensor of at least STAGED_MIN_BYTES.  Scalars, small
+    tensors, views that are not contiguous and the CPU device take
+    t.cpu()."""
+    return (t.device.type == "cuda" and t.is_contiguous()
+            and t.numel() * t.element_size() >= STAGED_MIN_BYTES)
+
+
+def copy_staged(src: torch.Tensor, out: np.ndarray,
+                piece: int = READ_PIECE_BYTES, ring: int = READ_RING,
+                threads: int = READ_THREADS) -> np.ndarray:
+    """Copies the bytes of the contiguous tensor `src` into `out`, a
+    C-contiguous array of as many bytes, through `ring` host buffers of
+    `piece` bytes (pinned for a CUDA tensor), and returns `out`.  Each piece's
+    copy into a free buffer is queued on src's stream (an event marks its
+    end on CUDA); one of `threads` threads waits for it and copies the
+    buffer into `out` (np.copyto, without the GIL, so that out's pages
+    fault in on several threads); a buffer takes its next piece once its
+    host copy is done, so that one piece's DMA overlaps the host copies of
+    those before it.  Takes no device memory."""
+    src_bytes = src.reshape(-1).view(torch.uint8)
+    dst = out.reshape(-1).view(np.uint8)
+    n = dst.shape[0]
+    if n != src_bytes.shape[0]:
+        raise ValueError(f"copy_staged: {src_bytes.shape[0]} bytes into {n}")
+    if not n:
+        return out
+    piece = min(piece, n)
+    starts = range(0, n, piece)
+    slots = [torch.empty(piece, dtype=torch.uint8, pin_memory=src.is_cuda)
+             for _ in range(min(ring, len(starts)))]
+    stream = torch.cuda.current_stream(src.device) if src.is_cuda else None
+
+    def drain(done, buf: torch.Tensor, lo: int) -> None:
+        if done is not None:
+            done.synchronize()
+        np.copyto(dst[lo : lo + buf.shape[0]], buf.numpy())
+
+    with concurrent.futures.ThreadPoolExecutor(threads) as pool:
+        busy = [None] * len(slots)
+        for i, lo in enumerate(starts):
+            slot = i % len(slots)
+            if busy[slot] is not None:
+                busy[slot].result()
+            buf = slots[slot][: min(piece, n - lo)]
+            buf.copy_(src_bytes[lo : lo + buf.shape[0]], non_blocking=True)
+            done = None
+            if stream is not None:
+                done = torch.cuda.Event()
+                done.record(stream)
+            busy[slot] = pool.submit(drain, done, buf, lo)
+        for f in busy:
+            f.result()
+    return out
+
+
 def download(what: str, t: torch.Tensor, logged: bool = False) -> np.ndarray:
     """The tensor on the host as numpy, after the work queued on its
     device: every device-to-host copy of the main path goes through here,
     scalar reads too (int(download(...))), a span "copy.d2h" with its
     `what` and bytes, counted in d2h_bytes and d2h_copies (on the CPU
-    device too, where no copy crosses a link).  With `logged`, the count's
-    line "count: WHAT download N B in S s" states its bytes and seconds
-    at debug level (timed from when the work queued before it is done)."""
+    device too, where no copy crosses a link).  A tensor on the staged
+    route (staged_route) comes down through the pinned ring into an array
+    of np.empty (copy_staged: the pooling allocator's recycled pages where
+    it holds a block of the size, else fresh ones, faulted in on the
+    ring's threads), counted in d2h.staged; any other as
+    t.cpu().numpy().  With `logged`, the count's line "count: WHAT
+    download N B in S s" states its bytes and seconds at debug level
+    (timed from when the work queued before it is done)."""
     sync(t.device)
     nbytes = t.numel() * t.element_size()
     with trace.timed("copy.d2h", what=what, bytes=nbytes) as s:
         trace.add("d2h_bytes", nbytes)
         trace.add("d2h_copies")
-        out = t.cpu().numpy()
+        if staged_route(t):
+            trace.add("d2h.staged")
+            dtype = torch.empty(0, dtype=t.dtype).numpy().dtype
+            out = copy_staged(t, np.empty(tuple(t.shape), dtype))
+        else:
+            out = t.cpu().numpy()
     if logged:
         logger.debug("count: %s download %d B in %.4f s", what, out.nbytes,
                      s.seconds)
